@@ -16,24 +16,36 @@ non-zero code and prints no result.  Phases, each of which must pass:
 3. main path: the flagship configuration (solid-body wind on a
    360x181x61 grid, midpoint advection, turbulent and mesoscale
    diffusion, decay, float32 state) with N parcels through the port's
-   ``Simulation`` loop: initial sort, 2 warm-up steps, 20 timed steps
-   with ``SORT_DT 1800``, so two re-sorts of drifted parcels fall
-   inside.  Launch counts are zeroed just before and read just after;
-4. kernels: each CUDA kernel against its plain PyTorch version on the
-   main path's own tensors (the plain version evaluated in chunks, to
-   bound its temporaries), with its time, the plain version's, a
-   library call's where one computes the same function, and the bound
-   from bytes and operations.  Printed as one JSON line
+   ``Simulation`` loop on the fused RK kernel (``TPU_FAST 2``): initial
+   sort, 2 warm-up steps, 10 timed steps with ``SORT_DT 1800``, so one
+   re-sort of drifted parcels falls inside.  Launch counts are zeroed
+   just before and read just after;
+4. kernels of the main path (K1-K3): each CUDA kernel against its plain
+   PyTorch version on the main path's own tensors (the plain version
+   evaluated in chunks, to bound its temporaries), with its time, the
+   plain version's, a library call's where one computes the same
+   function, and the bound from bytes and operations;
+5. unfused path: the same configuration on the unfused kernels
+   (``TPU_FAST 1``: one interpolation launch per RK node, the sigma
+   kernel after the turbulent displacement, the meteo sampling of
+   t, u, v, w, theta, ps), driven and counted the same way;
+6. kernels of the unfused path (K4, K5) on its own tensors, and the two
+   ``ops`` kernels on other table layouts (K6, K7), which no module
+   reaches: those are driven once through their public functions with
+   the counts zeroed before and read after, then compared and timed
+   like the others.  All kernels are printed as one JSON line
    ``{"kernels": [...]}``;
-5. card against CPU: 10 steps at the tests' size on "cuda" and on "cpu".
+7. card against CPU: 10 steps at the tests' size on "cuda" and on "cpu",
+   for the fused path, the unfused path and the exact float64 path.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 N is fixed at 100,663,296 parcels (100M rounded up to a multiple of
 2^21, the size the JAX benchmark uses).  ``--np`` and ``--steps`` exist
-for short debugging runs; ``--profile`` adds a profiler pass over two
-extra steps and prints the device time by kernel.
+for short debugging runs; ``--profile`` adds, for each path, a pass
+over two extra steps timed module by module and a profiler pass that
+prints the device time by kernel.
 """
 
 import argparse
@@ -50,7 +62,7 @@ os.environ.setdefault("LOGLEV", "0")
 N_FLAGSHIP = 100_663_296
 GRID = (360, 181, 61)
 WARMUP_STEPS = 2
-TIMED_STEPS = 20
+TIMED_STEPS = 10
 SORT_DT = 1800.0
 
 #: published peaks of one H100 SXM: HBM bytes/s, float32 FLOP/s outside
@@ -60,6 +72,11 @@ PEAK_F32_OPS_S = 67e12
 
 #: parcels per pass of a plain version (bounds its temporaries)
 PLAIN_CHUNK = 1 << 22
+
+#: quantities sampled on the unfused path: straight 3-D samplings (the
+#: uvwt kernel), a derived quantity and a surface field (the surface
+#: kernel)
+UNFUSED_QNT = ("t", "m", "u", "v", "w", "theta", "ps")
 
 
 def say(msg):
@@ -142,23 +159,30 @@ def phase_build():
     return dt
 
 
-def phase_main_path(torch, n, steps, profile):
+def drive_flagship(torch, tag, n, steps, profile, extra_args):
+    """The flagship through ``Simulation`` with the pack that its
+    ``TPU_FAST`` asks for: initial sort, warm-up steps, timed steps.
+    Launch counts are zeroed just before and read just after.  Checks
+    what every path must show (finite state, moved parcels, the RNG
+    counter, the mass decay, parcel times, T = 280 K, the sorts) and
+    returns (sim, counts, stats)."""
     from mptrac_tpu_torch import flagship
     from mptrac_tpu_torch.ops import _cuda
-    from mptrac_tpu_torch.ops.fast_interp import build_met_pack
     from mptrac_tpu_torch.physics.timesteps import init_time_range
-    from mptrac_tpu_torch.sim import Simulation
+    from mptrac_tpu_torch.sim import Simulation, build_pack
 
     t0 = time.time()
     ctl, clim, met01, atm, cache = flagship.make_setup(
-        n, *GRID, extra_args=("SORT_DT", str(int(SORT_DT))), device="cuda")
+        n, *GRID, extra_args=("SORT_DT", str(int(SORT_DT))) + extra_args,
+        device="cuda")
     ctl = init_time_range(ctl, [0.0])
-    pack = build_met_pack(met01, cell=True)
+    pack = build_pack(ctl, met01)
     torch.cuda.synchronize()
-    say(f"[main] set-up of {n} parcels on {GRID[0]}x{GRID[1]}x{GRID[2]} "
-        f"in {time.time() - t0:.1f} s; RK table "
-        f"{pack.cell.table.numel() * 4 / 1e6:.1f} MB, surface table "
-        f"{pack.sfcT.numel() * 4 / 1e6:.1f} MB")
+    tables = {k: v.table if k == "cell" else v
+              for k, v in pack._asdict().items() if v is not None}
+    say(f"[{tag}] set-up of {n} parcels on {GRID[0]}x{GRID[1]}x{GRID[2]} "
+        f"in {time.time() - t0:.1f} s; tables " + ", ".join(
+            f"{k} {v.numel() * 4 / 1e6:.1f} MB" for k, v in tables.items()))
     sim = Simulation(ctl, clim, met01, atm, cache, pack)
     del atm, cache
     dt_mod = ctl.dt_mod
@@ -166,7 +190,7 @@ def phase_main_path(torch, n, steps, profile):
     ts = [dt_mod * (i + 1) for i in range(total)]
 
     torch.cuda.reset_peak_memory_stats()
-    _cuda.reset_launch_counts()              # the main path starts here
+    _cuda.reset_launch_counts()              # the path starts here
     t0 = time.time()
     sim.sort()                               # initial sort (random order)
     torch.cuda.synchronize()
@@ -187,57 +211,97 @@ def phase_main_path(torch, n, steps, profile):
     peak = torch.cuda.max_memory_allocated()
 
     a, c = sim.atm, sim.cache
-    resorts = sim.nsorts - 1
-    for name, x in (("lon", a.lon), ("lat", a.lat), ("p", a.p),
-                    ("t", a.q["t"]), ("m", a.q["m"]), ("time", a.time),
-                    ("uvwp", c.uvwp)):
+    for name, x in [("lon", a.lon), ("lat", a.lat), ("p", a.p),
+                    ("time", a.time), ("uvwp", c.uvwp)] + [
+                        (k, v) for k, v in a.q.items()]:
         if not bool(torch.isfinite(x).all()):
-            raise RuntimeError(f"main path: non-finite values in {name}")
+            raise RuntimeError(f"{tag}: non-finite values in {name}")
     if not moved > 1e-3:
-        raise RuntimeError("main path: parcels did not move")
+        raise RuntimeError(f"{tag}: parcels did not move")
     want_ctr = total * 2 * (3 * n + 1)
     if c.rng_ctr != want_ctr:
-        raise RuntimeError(f"main path: rng_ctr {c.rng_ctr}, expected "
+        raise RuntimeError(f"{tag}: rng_ctr {c.rng_ctr}, expected "
                            f"{want_ctr}")
     want_m = math.exp(-dt_mod / ctl.tdec_trop) ** total
     m_err = float((a.q["m"] / want_m - 1.0).abs().max())
     if not m_err < 1e-5:
-        raise RuntimeError(f"main path: mass decay off by {m_err:.2e} rel.")
+        raise RuntimeError(f"{tag}: mass decay off by {m_err:.2e} rel.")
     if not float((a.time - ts[-1]).abs().max()) == 0.0:
-        raise RuntimeError("main path: parcel times did not reach t")
+        raise RuntimeError(f"{tag}: parcel times did not reach t")
     if not (abs(float(a.q["t"].min()) - 280.0) < 1e-2
             and abs(float(a.q["t"].max()) - 280.0) < 1e-2):
-        raise RuntimeError("main path: sampled temperature is not 280 K")
+        raise RuntimeError(f"{tag}: sampled temperature is not 280 K")
     expect_sorts = 1 + sum(1 for t in ts if math.fmod(t, SORT_DT) == 0)
+    if counts["permute_cols"] != expect_sorts or (
+            steps >= TIMED_STEPS and counts["permute_cols"] < 2):
+        raise RuntimeError(f"{tag}: K3 launches {counts['permute_cols']}, "
+                           f"expected {expect_sorts}")
+    stats = {
+        "n_parcels": n, "grid": list(GRID), "steps_timed": steps,
+        "steps_warmup": WARMUP_STEPS, "resorts": sim.nsorts - 1,
+        "initial_sort_s": sort0_s, "warmup_s": warm_s,
+        "timed_s": timed_s, "ms_per_step": 1e3 * timed_s / steps,
+        "parcel_steps_per_s": n * steps / timed_s,
+        "peak_memory_allocated_bytes": peak,
+        "launches": counts, "mass_rel_err": m_err}
+    if profile:
+        stats["profile"] = profile_steps(
+            torch, sim, [ts[-1] + dt_mod * (i + 1) for i in range(2)])
+    return sim, counts, stats
+
+
+def phase_main_path(torch, n, steps, profile):
+    """The fused path: one K1 launch a step."""
+    sim, counts, stats = drive_flagship(torch, "main", n, steps, profile,
+                                        ("TPU_FAST", "2"))
+    total = WARMUP_STEPS + steps
     if counts["rk_fused_advect"] != total:
         raise RuntimeError(f"K1 launches {counts['rk_fused_advect']} != "
                            f"steps {total}")
     if counts["sfc_interp"] < total:
         raise RuntimeError(f"K2 launches {counts['sfc_interp']} < {total}")
-    if counts["permute_cols"] != expect_sorts or (
-            steps >= TIMED_STEPS and counts["permute_cols"] < 2):
-        raise RuntimeError(f"K3 launches {counts['permute_cols']}, "
-                           f"expected {expect_sorts}")
-    rate = n * steps / timed_s
-    say(json.dumps({"main_path": {
-        "n_parcels": n, "grid": list(GRID), "steps_timed": steps,
-        "steps_warmup": WARMUP_STEPS, "resorts": resorts,
-        "initial_sort_s": sort0_s, "warmup_s": warm_s,
-        "timed_s": timed_s, "ms_per_step": 1e3 * timed_s / steps,
-        "parcel_steps_per_s": rate,
-        "peak_memory_allocated_bytes": peak,
-        "launches": counts, "mass_rel_err": m_err}}))
+    say(json.dumps({"main_path": stats}))
+    return sim, counts
 
-    if profile:
-        profile_steps(torch, sim, [ts[-1] + dt_mod * (i + 1)
-                                   for i in range(2)])
+
+def phase_unfused_path(torch, n, steps, profile):
+    """The unfused path: per step K4 once per RK node and once in the
+    meteo sampling, K5 once, K2 for the turbulent diffusion and for the
+    sampled surface pressure."""
+    qnt = ("NQ", str(len(UNFUSED_QNT)))
+    for k, name in enumerate(UNFUSED_QNT):
+        qnt += (f"QNT_NAME[{k}]", name)
+    sim, counts, stats = drive_flagship(torch, "unfused", n, steps, profile,
+                                        ("TPU_FAST", "1") + qnt)
+    total = WARMUP_STEPS + steps
+    want = {"uvwt_interp": (sim.ctl.advect + 1) * total,
+            "meso_sigma": total, "sfc_interp": 2 * total,
+            "rk_fused_advect": 0}
+    for name, k in want.items():
+        if counts[name] != k:
+            raise RuntimeError(f"unfused path: {name} launched "
+                               f"{counts[name]} times, expected {k}")
+    a = sim.atm
+    # theta = T (1000/p)^0.286 at T = 280 K and 200 < p < 1013.25 hPa;
+    # ps is uniform; the solid-body wind stays under its u0 and has w = 0
+    from mptrac_tpu_torch.ops import thermo
+    th_err = float((a.q["theta"] - thermo.theta(a.p, a.q["t"])).abs().max())
+    vh = float(torch.sqrt(a.q["u"] ** 2 + a.q["v"] ** 2).max())
+    if not (th_err == 0.0 and abs(float(a.q["ps"].min()) - 1013.25) < 1e-3
+            and abs(float(a.q["ps"].max()) - 1013.25) < 1e-3
+            and 1.0 < vh < 38.6 and float(a.q["w"].abs().max()) == 0.0):
+        raise RuntimeError(
+            f"unfused path: sampled quantities off (theta {th_err:.2e}, "
+            f"max wind {vh:.3f}, ps {float(a.q['ps'].min()):.3f})")
+    say(json.dumps({"unfused_path": stats}))
     return sim, counts
 
 
 def profile_steps(torch, sim, ts2):
     """Where a step's device time goes: by module (CUDA events around
     each module of the pipeline, the random draws counted apart from
-    the modules that call them) and by kernel (torch.profiler)."""
+    the modules that call them; returned as ms per step) and by kernel
+    (torch.profiler, printed)."""
     from torch.profiler import ProfilerActivity, profile as prof
 
     from mptrac_tpu_torch.physics import (advect, decay, diffusion, meteo,
@@ -262,6 +326,7 @@ def profile_steps(torch, sim, ts2):
     patched = [wrap(timesteps, "module_timesteps"),
                wrap(position, "module_position"),
                wrap(advect, "module_advect_fused"),
+               wrap(advect, "module_advect"),
                wrap(diffusion, "module_rng3"),
                wrap(diffusion, "module_diff_turb"),
                wrap(diffusion, "module_diff_meso"),
@@ -285,7 +350,6 @@ def profile_steps(torch, sim, ts2):
         per.pop("module_diff_turb") + per.pop("module_diff_meso")
         - per["module_rng3"])
     per["step"] = e0.elapsed_time(e1) / len(ts2)
-    say(json.dumps({"profile_ms_per_step": per}))
 
     ts3 = [ts2[-1] + sim.ctl.dt_mod * (i + 1) for i in range(2)]
     with prof(activities=[ProfilerActivity.CPU,
@@ -293,10 +357,20 @@ def profile_steps(torch, sim, ts2):
         sim.run(ts3)
         torch.cuda.synchronize()
     say(trace.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+    return per
+
+
+def bound_ms(nbytes, ops):
+    """(bound_ms, bound_by, by bytes, by operations): the least time the
+    card could take, from its published peaks."""
+    b_bytes = 1e3 * nbytes / PEAK_BYTES_S
+    b_ops = 1e3 * ops / PEAK_F32_OPS_S
+    return (max(b_bytes, b_ops),
+            "bytes" if b_bytes >= b_ops else "operations", b_bytes, b_ops)
 
 
 def phase_kernels(torch, sim, counts):
-    """Each kernel against its plain version on the main path's tensors."""
+    """K1-K3 against their plain versions on the main path's tensors."""
     from mptrac_tpu_torch.ops import interp, rk_fused, slab_interp
     from mptrac_tpu_torch.physics.timesteps import module_timesteps
 
@@ -362,8 +436,8 @@ def phase_kernels(torch, sim, counts):
                           bytes=nbytes, operations=ops,
                           cell_crossers=crossers)
     main_stage = sim.ctl.advect
-    b_bytes = 1e3 * k1[main_stage]["bytes"] / PEAK_BYTES_S
-    b_ops = 1e3 * k1[main_stage]["operations"] / PEAK_F32_OPS_S
+    b, by, b_bytes, b_ops = bound_ms(k1[main_stage]["bytes"],
+                                     k1[main_stage]["operations"])
     kernels.append(dict(
         name="rk_fused_advect", route="cuda",
         source="mptrac_tpu_torch/csrc/rk_fused.cu",
@@ -371,8 +445,7 @@ def phase_kernels(torch, sim, counts):
         launches=counts["rk_fused_advect"],
         max_abs_err=k1[main_stage]["max_abs_err"],
         ms=k1[main_stage]["ms"], plain_ms=k1[main_stage]["plain_ms"],
-        bound_ms=max(b_bytes, b_ops),
-        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        bound_ms=b, bound_by=by,
         library_ms=None, n=n, nstage=main_stage,
         bound_bytes_ms=b_bytes, bound_operations_ms=b_ops,
         bytes_per_parcel=48, tolerance=tol1,
@@ -421,15 +494,13 @@ def phase_kernels(torch, sim, counts):
     # per field: 2 snapshots x (7 lerp operations + 4 finite tests
     # + 3 selects) + the time lerp and its selects
     ops2 = n * len(fields) * 33
-    b_bytes = 1e3 * nbytes2 / PEAK_BYTES_S
-    b_ops = 1e3 * ops2 / PEAK_F32_OPS_S
+    b, by, _, _ = bound_ms(nbytes2, ops2)
     kernels.append(dict(
         name="sfc_interp", route="cuda",
         source="mptrac_tpu_torch/csrc/sfc_interp.cu",
         replaces="mptrac_tpu/ops/slab_interp.py:303",
         launches=counts["sfc_interp"], max_abs_err=err2, ms=ms2,
-        plain_ms=plain_ms, bound_ms=max(b_bytes, b_ops),
-        bound_by="bytes" if b_bytes >= b_ops else "operations",
+        plain_ms=plain_ms, bound_ms=b, bound_by=by,
         library_ms=None, n=n, nfields=len(fields),
         bytes_per_parcel=16 + 4 * len(fields), tolerance=tol2,
         nan_parcels_pbl=nan_parcels))
@@ -467,7 +538,7 @@ def phase_kernels(torch, sim, counts):
         k3[kind] = dict(ms=ms, plain_ms=plain, library_ms=lib)
         del perm
     per_parcel = 8 + 8 * len(cols) + 16
-    b_bytes = 1e3 * n * per_parcel / PEAK_BYTES_S
+    b_bytes = bound_ms(n * per_parcel, 0)[0]
     kernels.append(dict(
         name="permute_cols", route="cuda",
         source="mptrac_tpu_torch/csrc/permute_cols.cu",
@@ -484,52 +555,291 @@ def phase_kernels(torch, sim, counts):
     return kernels
 
 
-def phase_card_vs_cpu(torch):
-    """10 steps at the tests' size on the card and on the CPU, held to
-    the tolerances of tests/test_torch_step.py (ten steps)."""
-    from mptrac_tpu_torch import flagship
-    from mptrac_tpu_torch.ops.fast_interp import build_met_pack
-    from mptrac_tpu_torch.physics.timesteps import init_time_range
-    from mptrac_tpu_torch.sim import Simulation
+def phase_kernels_unfused(torch, sim, counts):
+    """K4 and K5 against their plain versions on the unfused path's
+    tensors, and K6 and K7, the same functions on other table layouts,
+    driven once through their public functions and then compared."""
+    from mptrac_tpu_torch.ops import (_cuda, fast_interp, interp,
+                                      lane_interp, pallas_interp,
+                                      slab_interp)
 
-    out = {}
-    for dev in ("cuda", "cpu"):
-        ctl, clim, met01, atm, cache = flagship.make_setup(
-            2048, nx=36, ny=19, nz=8, extra_args=("SORT_DT", "900"),
-            device=dev)
-        ctl = init_time_range(ctl, [0.0])
-        sim = Simulation(ctl, clim, met01, atm, cache,
-                         build_met_pack(met01, cell=True))
-        sim.sort()
-        sim.run([ctl.dt_mod * (i + 1) for i in range(10)])
-        out[dev] = sim
-    a, b = out["cuda"], out["cpu"]
-    if a.cache.rng_ctr != b.cache.rng_ctr or a.nsorts != b.nsorts:
-        raise RuntimeError("card vs CPU: rng_ctr or sort count differ")
-    errs = {}
-    for name, x, y, tol in (
-            ("lon", a.atm.lon, b.atm.lon, 6.2e-4),
-            ("lat", a.atm.lat, b.atm.lat, 6.2e-4),
-            ("p", a.atm.p, b.atm.p, 6.2e-4),
-            ("t", a.atm.q["t"], b.atm.q["t"], 6.2e-5),
-            ("m", a.atm.q["m"], b.atm.q["m"], 2e-6),
-            ("uvwp", a.cache.uvwp, b.cache.uvwp, 5e-3)):
-        errs[name] = float((x.cpu() - y).abs().max())
-        if not errs[name] <= tol:
-            raise RuntimeError(f"card vs CPU: {name} differs by "
-                               f"{errs[name]:.3e} > {tol:.1e}")
+    atm, met01, table = sim.atm, sim.met01, sim.pack.packT
+    n = atm.npmax
+    npl, nx, ny = table.shape[:3]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    loc = interp.locate_3d(met01, atm.lon, atm.lat, atm.p)
+    cell = slab_interp.cell_from_loc(table, loc)
+    base = ((loc.ix * ny + loc.iy) * npl + loc.iz).to(torch.int32)
+    wt = interp.time_weight(met01, atm.time).to(torch.float32)
+    w4 = (loc.wx.contiguous(), loc.wy.contiguous(), loc.wz.contiguous(), wt)
+    del loc
+    # a second table of the same shape with structure in all 8 fields
+    # (the flagship's w is 0 and its T uniform)
+    rtable = torch.rand(table.shape, device="cuda", generator=gen) \
+        * 100.0 - 50.0
+    #: same float32 operations without contraction on both sides: 2 ulp
+    #: of the largest value (280 K: ulp 3.1e-5; winds and the random
+    #: table stay under 64: ulp 3.8e-6)
+    tol_uvw, tol_t = 7.7e-6, 6.2e-5
+    #: sigma: the same sums in the same order; 2 ulp of 64
+    tol_sig = 7.7e-6
+    kernels = []
+
+    def timed_plain(fn, tensors):
+        t0 = time.time()
+        exp = chunked(fn, tensors, n)
+        torch.cuda.synchronize()
+        return exp, 1e3 * (time.time() - t0)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, nbytes,
+              ops, per_parcel, tol, **more):
+        b, by, b_bytes, b_ops = bound_ms(nbytes, ops)
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                    library_ms=None, n=n, bound_bytes_ms=b_bytes,
+                    bound_operations_ms=b_ops, bytes_per_parcel=per_parcel,
+                    tolerance=tol, **more)
+
+    def check(name, got, exp, tols):
+        errs = [max_err(got[r], exp[r], torch) for r in range(got.shape[0])]
+        for r, (e, tol) in enumerate(zip(errs, tols)):
+            if not e <= tol:
+                raise RuntimeError(f"{name} row {r}: max abs err {e:.3e} "
+                                   f"> {tol:.1e}")
+        return max(errs)
+
+    # ---- K4 on the path's table and on the random one
+    err4, plain4 = 0.0, 0.0
+    for tag, tab in (("path", table), ("random", rtable)):
+        got = slab_interp.interp_uvwt(tab, cell, w4)
+        exp, plain4 = timed_plain(
+            lambda c, *w: slab_interp.uvwt_interp_plain(tab, c, *w),
+            (cell,) + w4)
+        err4 = max(err4, check(f"K4 ({tag} table)", got, exp,
+                               [tol_uvw] * 3 + [tol_t]))
+        if tag == "path":
+            uvwt_path = got
+        del exp
+    ms4 = time_ms(lambda: slab_interp.interp_uvwt(table, cell, w4), torch)
+    # the cost of losing the sort: the same parcels in a random order
+    perm = torch.randperm(n, device="cuda", generator=gen)
+    cell_r = cell[perm]
+    w4_r = tuple(x[perm] for x in w4)
+    got_r = slab_interp.interp_uvwt(table, cell_r, w4_r)
+    if not bool(torch.equal(got_r, uvwt_path[:, perm])):
+        raise RuntimeError("K4: a random parcel order changes the values")
+    del got_r
+    ms4_r = time_ms(lambda: slab_interp.interp_uvwt(table, cell_r, w4_r),
+                    torch)
+    del cell_r, w4_r, perm
+    tbytes = table.numel() * 4
+    # 8 fields x 21 operations in space, 4 time interpolations x 3
+    kernels.append(entry(
+        "uvwt_interp", "mptrac_tpu_torch/csrc/uvwt_interp.cu",
+        "mptrac_tpu/ops/slab_interp.py:303", counts["uvwt_interp"], err4,
+        ms4, plain4, n * 36 + tbytes, n * 180, 36, [tol_uvw, tol_t],
+        ms_random_order=ms4_r))
+
+    # ---- K5 on the path's table (the cancelling case) and the random one
+    err5, plain5 = 0.0, 0.0
+    for tag, tab in (("path", table), ("random", rtable)):
+        got = slab_interp.meso_sigma(tab, cell)
+        exp, plain5 = timed_plain(
+            lambda c: slab_interp.meso_sigma_plain(tab, c), (cell,))
+        err5 = max(err5, check(f"K5 ({tag} table)", got, exp,
+                               [tol_sig] * 3))
+        if tag == "path":
+            sig_path = got
+            sig_max = float(got.max())
+        del exp
+    if not 0.0 < sig_max < 10.0:
+        raise RuntimeError(f"K5: largest sigma {sig_max} on the flagship's "
+                           "wind is not a subgrid standard deviation")
+    ms5 = time_ms(lambda: slab_interp.meso_sigma(table, cell), torch)
+    kernels.append(entry(
+        "meso_sigma", "mptrac_tpu_torch/csrc/meso_sigma.cu",
+        "mptrac_tpu/ops/slab_interp.py:303", counts["meso_sigma"], err5,
+        ms5, plain5, n * 16 + tbytes, n * 159, 16, tol_sig,
+        sigma_max=sig_max))
+    del rtable
+
+    # ---- K6, K7: no module reaches them.  Their path is their public
+    # functions, called once each on the unfused path's parcels.
+    w4s = torch.stack(w4)                          # [4, n]
+    w4t = w4s.T.contiguous()                       # [n, 4]
+    del w4
+    _cuda.reset_launch_counts()                    # the ops path starts
+    t0 = time.time()
+    lanes = lane_interp.build_lane_tables(met01)
+    pack8 = fast_interp.build_advect_pack(met01)
+    uvw6, t6, served6 = lane_interp.interp_uvwt_sorted(lanes, base, w4s)
+    sig6, served6m = lane_interp.meso_sigma_sorted(lanes, base)
+    uvw7, ok7 = pallas_interp.interp_uvw_sorted(pack8, base, w4t,
+                                                (ny * npl, npl))
+    torch.cuda.synchronize()
+    ops_s = time.time() - t0
+    ops_counts = dict(_cuda.launch_counts)         # ... and ends here
+    for name in ("lane_interp_uvwt", "lane_meso_sigma", "uvw_rows_interp"):
+        if ops_counts[name] != 1:
+            raise RuntimeError(f"ops path: {name} launched "
+                               f"{ops_counts[name]} times, expected 1")
+    if (served6, served6m) != (1.0, 1.0) or not bool(ok7.all()):
+        raise RuntimeError("K6/K7: a parcel was not served")
+    for name, x in (("K6 uvw", uvw6), ("K6 t", t6), ("K6 sigma", sig6),
+                    ("K7 uvw", uvw7)):
+        if not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"ops path: non-finite values in {name}")
+    # the same function on another table layout: the same values
+    if not (bool(torch.equal(uvw6, uvwt_path[0:3]))
+            and bool(torch.equal(t6, uvwt_path[3]))
+            and bool(torch.equal(sig6, sig_path))
+            and bool(torch.equal(uvw7.T, uvwt_path[0:3]))):
+        raise RuntimeError("K6/K7 differ from K4/K5 on the same parcels")
+    del uvwt_path, sig_path, uvw7, ok7
+    say(json.dumps({"ops_path": {
+        "n_parcels": n, "grid": list(GRID), "seconds": ops_s,
+        "table64_bytes": lanes.pack64.numel() * 4,
+        "table8_bytes": pack8.numel() * 4, "launches": ops_counts,
+        "equal_to_K4_K5": True}}))
+
+    rows4 = tuple(w4s[k] for k in range(4))
+    got = torch.cat([uvw6, t6[None]])
+    del uvw6, t6
+    exp, plain6 = timed_plain(
+        lambda b, *w: lane_interp.interp_uvwt_plain(lanes.pack64, b,
+                                                    torch.stack(w)),
+        (base,) + rows4)
+    err6 = check("K6 interp", got, exp, [tol_uvw] * 3 + [tol_t])
+    del got, exp
+    exp, plain6m = timed_plain(
+        lambda b: lane_interp.meso_sigma_plain(lanes.pack64, b), (base,))
+    err6m = check("K6 sigma", sig6, exp, [tol_sig] * 3)
+    del sig6, exp
+    ms6 = time_ms(lambda: lane_interp.interp_uvwt_sorted(lanes, base, w4s),
+                  torch)
+    ms6m = time_ms(lambda: lane_interp.meso_sigma_sorted(lanes, base), torch)
+    t64 = lanes.pack64.numel() * 4
+    # the sigma reads the 48 wind lanes of a row, not its 16 T lanes
+    b6m = bound_ms(n * 16 + t64 * 48 // 64, n * 159)
+    kernels.append(entry(
+        "lane_interp", "mptrac_tpu_torch/csrc/lane_interp.cu",
+        "mptrac_tpu/ops/lane_interp.py:65",
+        ops_counts["lane_interp_uvwt"] + ops_counts["lane_meso_sigma"],
+        max(err6, err6m), ms6, plain6, n * 36 + t64, n * 180, 36,
+        [tol_uvw, tol_t, tol_sig], mode="interp",
+        launches_by_mode={"interp": ops_counts["lane_interp_uvwt"],
+                          "meso": ops_counts["lane_meso_sigma"]},
+        meso={"max_abs_err": err6m, "ms": ms6m, "plain_ms": plain6m,
+              "bound_ms": b6m[0], "bound_by": b6m[1],
+              "bytes_per_parcel": 16}))
+    del lanes
+
+    got = pallas_interp.interp_uvw_sorted(pack8, base, w4t,
+                                          (ny * npl, npl))[0].T
+    exp, plain7 = timed_plain(
+        lambda b, *w: pallas_interp.interp_uvw_plain(
+            pack8, b, torch.stack(w, dim=1), (ny * npl, npl)).T,
+        (base,) + rows4)
+    err7 = check("K7", got, exp, [tol_uvw] * 3)
+    del got, exp
+    ms7 = time_ms(lambda: pallas_interp.interp_uvw_sorted(
+        pack8, base, w4t, (ny * npl, npl)), torch)
+    # 6 fields x 21 operations in space, 3 time interpolations x 3
+    kernels.append(entry(
+        "uvw_rows_interp", "mptrac_tpu_torch/csrc/uvw_rows.cu",
+        "mptrac_tpu/ops/pallas_interp.py:34", ops_counts["uvw_rows_interp"],
+        err7, ms7, plain7, n * 32 + pack8.numel() * 4, n * 135, 32,
+        tol_uvw))
+    return kernels
+
+
+def phase_card_vs_cpu(torch):
+    """10 steps at the tests' size on the card and on the CPU, for the
+    fused path, the unfused path and the exact float64 path, held to
+    the ten-step tolerances of tests/test_torch_step.py.  The unfused
+    and the exact path run on a humid met (q = 4e-3) and sample rh and
+    sh, so the humidity branch of module_meteo runs on the card."""
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch.ops import thermo
+    from mptrac_tpu_torch.physics.timesteps import init_time_range
+    from mptrac_tpu_torch.sim import Simulation, build_pack
+
+    f32, f64 = torch.float32, torch.float64
+    #: float32: the two sides differ by the math libraries' cos, log,
+    #: exp (a few ulp of a position per step).  float64: the normals
+    #: are drawn through single-precision log, cos and sin in this mode
+    #: too (the reference's Box-Muller), so they differ by a few
+    #: float32 ulp (~5e-7 of a normal up to 5) between two math
+    #: libraries, times a step's random displacement (~1e-2 deg, a few
+    #: hPa), over ten steps; T is uniform, m is one exp per step.
+    #: rh follows p (36 % at 900 hPa: 4e-2 % per hPa); sh is uniform.
+    tols32 = dict(lon=6.2e-4, lat=6.2e-4, p=6.2e-4, t=6.2e-5, m=2e-6,
+                  uvwp=5e-3, rh=1e-4, sh=1e-9)
+    tols64 = dict(lon=1e-7, lat=1e-7, p=5e-6, t=1e-9, m=1e-12, uvwp=5e-6,
+                  rh=1e-6, sh=1e-12)
+    humid = ("NQ", "4", "QNT_NAME[2]", "rh", "QNT_NAME[3]", "sh")
+    q_humid = 4e-3
+    report = {}
+    for path, fast, dtype, tols, q in (
+            ("fused", "2", f32, tols32, 0.0),
+            ("unfused", "1", f32, tols32, q_humid),
+            ("exact_f64", "0", f64, tols64, q_humid)):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            ctl, clim, met01, atm, cache = flagship.make_setup(
+                2048, nx=36, ny=19, nz=8,
+                extra_args=("SORT_DT", "900", "TPU_FAST", fast)
+                + (humid if q else ()), device=dev, dtype=dtype, q=q)
+            ctl = init_time_range(ctl, [0.0])
+            sim = Simulation(ctl, clim, met01, atm, cache,
+                             build_pack(ctl, met01))
+            sim.sort()
+            sim.run([ctl.dt_mod * (i + 1) for i in range(10)])
+            out[dev] = sim
+        a, b = out["cuda"], out["cpu"]
+        if a.cache.rng_ctr != b.cache.rng_ctr or a.nsorts != b.nsorts:
+            raise RuntimeError(f"card vs CPU ({path}): rng_ctr or sort "
+                               "count differ")
+        if a.atm.lon.dtype != dtype:
+            raise RuntimeError(f"card vs CPU ({path}): state is "
+                               f"{a.atm.lon.dtype}, not {dtype}")
+        errs = {}
+        pairs = [("lon", a.atm.lon, b.atm.lon), ("lat", a.atm.lat, b.atm.lat),
+                 ("p", a.atm.p, b.atm.p), ("t", a.atm.q["t"], b.atm.q["t"]),
+                 ("m", a.atm.q["m"], b.atm.q["m"]),
+                 ("uvwp", a.cache.uvwp, b.cache.uvwp)]
+        if q:
+            pairs += [(k, a.atm.q[k], b.atm.q[k]) for k in ("rh", "sh")]
+            # the card's own values: humidity of a uniform mixing ratio
+            h2o = torch.full_like(a.atm.p, q)
+            want = {"rh": thermo.rh(a.atm.p, a.atm.q["t"], h2o),
+                    "sh": thermo.sh(h2o)}
+            for k, w in want.items():
+                rel = float((a.atm.q[k] / w - 1.0).abs().max())
+                if not (rel <= 1e-5 and float(w.min()) > 0.0):
+                    raise RuntimeError(f"card vs CPU ({path}): sampled {k} "
+                                       f"is off by {rel:.2e} rel.")
+        for name, x, y in pairs:
+            errs[name] = float((x.cpu() - y).abs().max())
+            if not errs[name] <= tols[name]:
+                raise RuntimeError(
+                    f"card vs CPU ({path}): {name} differs by "
+                    f"{errs[name]:.3e} > {tols[name]:.1e}")
+        report[path] = {"max_abs_err": errs, "tolerance": {k: tols[k] for k in errs}}
     say(json.dumps({"card_vs_cpu": {"steps": 10, "n_parcels": 2048,
-                                    "max_abs_err": errs}}))
+                                    "paths": report}}))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--np", type=int, default=N_FLAGSHIP,
-                    help="parcels of the main path (debugging only)")
+                    help="parcels of both paths (debugging only)")
     ap.add_argument("--steps", type=int, default=TIMED_STEPS,
-                    help="timed steps of the main path (debugging only)")
+                    help="timed steps of both paths (debugging only)")
     ap.add_argument("--profile", action="store_true",
-                    help="profile two extra steps, print time by kernel")
+                    help="profile two extra steps of each path: time by "
+                    "module and by kernel")
     args = ap.parse_args()
 
     import torch
@@ -543,6 +853,11 @@ def main():
     phase_build()
     sim, counts = phase_main_path(torch, args.np, args.steps, args.profile)
     kernels = phase_kernels(torch, sim, counts)
+    del sim                     # one simulation is freed before the next
+    torch.cuda.empty_cache()
+    sim, counts = phase_unfused_path(torch, args.np, args.steps,
+                                     args.profile)
+    kernels += phase_kernels_unfused(torch, sim, counts)
     del sim
     torch.cuda.empty_cache()
     phase_card_vs_cpu(torch)

@@ -21,11 +21,17 @@
 //     the table needs no margin columns; every parcel is served here;
 //   * the lat and p axes (a few hundred floats) sit in shared memory for the
 //     compare-count locate and the weight lookups.
+// The corner load, the interpolation and the sigma are interp_common.cuh's,
+// shared with the unfused kernels (uvwt_interp.cu, meso_sigma.cu).
 
-#include <cuda_runtime.h>
 #include <math.h>
 
+#include "interp_common.cuh"
+
 namespace {
+
+using mptrac::trilerp;
+using mptrac::trilerp_time;
 
 struct RkParams {
   const float* table;     // [npl, nx, ny, 8]
@@ -121,38 +127,6 @@ __device__ __forceinline__ Loc locate(const RkParams& P, const float* s_lat,
   return L;
 }
 
-// 8 corners x 8 fields; corner k = dx*4 + dy*2 + dz
-__device__ __forceinline__ void gather(const RkParams& P, int cell,
-                                       float c[8][8]) {
-  const float4* tab = reinterpret_cast<const float4*>(P.table);
-  const int oz = P.nx * P.ny;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
-    const size_t cc = (size_t)(cell + dx * P.ny + dy + dz * oz);
-    const float4 a = __ldg(tab + 2 * cc);
-    const float4 b = __ldg(tab + 2 * cc + 1);
-    c[k][0] = a.x; c[k][1] = a.y; c[k][2] = a.z; c[k][3] = a.w;
-    c[k][4] = b.x; c[k][5] = b.y; c[k][6] = b.z; c[k][7] = b.w;
-  }
-}
-
-__device__ __forceinline__ float mix(float w, float a, float b) {
-  return w * (a - b) + b;
-}
-
-// field f at the parcel point: z, then y, then x
-__device__ __forceinline__ float trilerp(const float c[8][8], int f,
-                                         const Loc& L) {
-  const float a00 = mix(L.wz, c[0][f], c[1][f]);
-  const float a01 = mix(L.wz, c[2][f], c[3][f]);
-  const float a10 = mix(L.wz, c[4][f], c[5][f]);
-  const float a11 = mix(L.wz, c[6][f], c[7][f]);
-  const float a0 = mix(L.wy, a00, a01);
-  const float a1 = mix(L.wy, a10, a11);
-  return mix(L.wx, a0, a1);
-}
-
 __device__ __forceinline__ float dx2coord(float dxm, float lat, bool cart) {
   if (cart) return dxm;
   const bool pole = (lat < -89.999f) || (lat > 89.999f);
@@ -185,6 +159,7 @@ __global__ void __launch_bounds__(256) rk_kernel(RkParams P) {
   float uprev = 0.0f, vprev = 0.0f, wprev = 0.0f;
   float lat_node = lat;
   float c[8][8];
+  const int oz = P.nx * P.ny;
 
 #pragma unroll
   for (int s = 0; s < NSTAGE; ++s) {
@@ -199,13 +174,10 @@ __global__ void __launch_bounds__(256) rk_kernel(RkParams P) {
     }
     const float wt = wt0 - (frac * dtp) * P.inv_tden;
     const Loc L = locate(P, s_lat, s_p, xlon, xlat, xp);
-    gather(P, L.cell, c);
-    const float f0 = trilerp(c, 0, L), f1 = trilerp(c, 1, L);
-    const float f2 = trilerp(c, 2, L), f3 = trilerp(c, 3, L);
-    const float f4 = trilerp(c, 4, L), f5 = trilerp(c, 5, L);
-    const float ui = wt * (f0 - f3) + f3;
-    const float vi = wt * (f1 - f4) + f4;
-    const float wi = wt * (f2 - f5) + f5;
+    mptrac::load_cell_corners(P.table, L.cell, P.ny, 1, oz, c);
+    const float ui = trilerp_time(c, 0, 3, L.wx, L.wy, L.wz, wt);
+    const float vi = trilerp_time(c, 1, 4, L.wx, L.wy, L.wz, wt);
+    const float wi = trilerp_time(c, 2, 5, L.wx, L.wy, L.wz, wt);
     um = um + kwt * ui;
     vm = vm + kwt * vi;
     wm = wm + kwt * wi;
@@ -222,29 +194,10 @@ __global__ void __launch_bounds__(256) rk_kernel(RkParams P) {
   // final position: temperature and the 16-point subgrid wind sigma
   const float wtf = wt0 - dtp * P.inv_tden;
   const Loc Lf = locate(P, s_lat, s_p, nlon, nlat, np_);
-  gather(P, Lf.cell, c);
-  const float t0 = trilerp(c, 6, Lf), t1 = trilerp(c, 7, Lf);
-  const float T = wtf * (t0 - t1) + t1;
-
+  mptrac::load_cell_corners(P.table, Lf.cell, P.ny, 1, oz, c);
+  const float T = trilerp_time(c, 6, 7, Lf.wx, Lf.wy, Lf.wz, wtf);
   float sig[3];
-#pragma unroll
-  for (int comp = 0; comp < 3; ++comp) {
-    // reference summation order: corner-major, snapshot 0 then 1
-    float mean = 0.0f, msq = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-#pragma unroll
-      for (int sn = 0; sn < 2; ++sn) {
-        const float val = c[k][comp + 3 * sn];
-        mean = mean + val;
-        msq = msq + val * val;
-      }
-    }
-    mean = mean * (1.0f / 16.0f);
-    msq = msq * (1.0f / 16.0f);
-    const float var = msq - mean * mean;
-    sig[comp] = var > 0.0f ? sqrtf(fmaxf(var, 0.0f)) : 0.0f;
-  }
+  mptrac::sigma16(c, sig);
 
   float* o = P.out + i;
   const long long n = P.n;
@@ -278,8 +231,8 @@ extern "C" int rk_fused_advect(
   P.cartesian = cartesian; P.lat_reg = lat_reg; P.lat_asc = lat_asc;
   P.p_asc = p_asc;
   const int block = 256;
-  const long long nblk = (n + block - 1) / block;
-  if (nblk > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const long long nblk = mptrac::grid_blocks(n, block);
+  if (nblk < 0) return (int)cudaErrorInvalidValue;
   const size_t shmem = (size_t)(ny + npl) * sizeof(float);
   if (shmem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

@@ -29,24 +29,29 @@ FLAGSHIP_ARGS = (
 
 
 def make_setup(n_parcels: int, nx: int = 90, ny: int = 46, nz: int = 16,
-               extra_args: Sequence[str] = (), device="cuda"):
+               extra_args: Sequence[str] = (), device="cuda",
+               dtype=torch.float32, q: float = 0.0):
     """(ctl, clim, met01, atm, cache) of the flagship on ``device``.
 
-    The state is in float32 compute mode (time stays float64), the
-    mode the fused kernel needs; ``extra_args`` are further
-    ``KEY VALUE`` control parameters (e.g. ``SORT_DT 1800``)."""
+    ``dtype`` is the compute mode of the state: float32 (the mode the
+    kernels need; time stays float64) or float64 (the reference-parity
+    mode of the exact path).  ``extra_args`` are further ``KEY VALUE``
+    control parameters (e.g. ``SORT_DT 1800``), which take precedence
+    over ``FLAGSHIP_ARGS``; ``q`` is the uniform
+    water vapour mixing ratio of the met fields (0 in the flagship;
+    derived humidity quantities need it positive)."""
     dev = resolve_device(device)
-    ctl = read_ctl(None, list(FLAGSHIP_ARGS) + list(extra_args))
+    # (the first occurrence of a key wins: extra_args override)
+    ctl = read_ctl(None, list(extra_args) + list(FLAGSHIP_ARGS))
     clim = read_clim(ctl, device=dev)
-    met0 = make_wind_met(t0=0.0, nx=nx, ny=ny, nz=nz, alpha=30.0,
+    met0 = make_wind_met(t0=0.0, nx=nx, ny=ny, nz=nz, alpha=30.0, q=q,
                          device=dev)
-    met1 = make_wind_met(t0=3600.0, nx=nx, ny=ny, nz=nz, alpha=30.0,
+    met1 = make_wind_met(t0=3600.0, nx=nx, ny=ny, nz=nz, alpha=30.0, q=q,
                          device=dev)
     met01 = stack_met(met0, met1)
     del met0, met1
 
     rng = np.random.default_rng(0)
-    dtype = torch.float32
 
     def draw(lo, hi):
         # drawn in float64 like the JAX setup, cast on the device
@@ -64,5 +69,5 @@ def make_setup(n_parcels: int, nx: int = 90, ny: int = 46, nz: int = 16,
         np=n_parcels)
     atm.q["m"] = torch.ones(n_parcels, dtype=dtype, device=dev)
     cache = Cache.zeros(n_parcels, dtype=dtype, iso_npmax=1, device=dev)
-    met01, clim = astype_state(met=met01, clim=clim)
+    met01, clim = astype_state(met=met01, clim=clim, dtype=dtype)
     return ctl, clim, met01, atm, cache

@@ -24,8 +24,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "mptrac_tpu_torch")
 
-#: one translation unit per kernel
-SOURCES = ("rk_fused.cu", "sfc_interp.cu", "permute_cols.cu")
+#: one translation unit per kernel; interp_common.cuh holds the device
+#: code that the interpolation kernels share
+SOURCES = ("rk_fused.cu", "sfc_interp.cu", "permute_cols.cu",
+           "uvwt_interp.cu", "meso_sigma.cu", "lane_interp.cu",
+           "uvw_rows.cu")
 
 #: -fmad=false: no multiply-add contraction, so each kernel rounds where
 #: its plain PyTorch version rounds (the kernels are bound by bytes, the
@@ -36,7 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel launches per wrapper since the last reset (a wrapper adds one
 #: where it launches its kernel and nowhere else)
-launch_counts = {"rk_fused_advect": 0, "sfc_interp": 0, "permute_cols": 0}
+launch_counts = {"rk_fused_advect": 0, "sfc_interp": 0, "permute_cols": 0,
+                 "uvwt_interp": 0, "meso_sigma": 0, "lane_interp_uvwt": 0,
+                 "lane_meso_sigma": 0, "uvw_rows_interp": 0}
 
 
 def reset_launch_counts() -> None:
@@ -138,6 +143,16 @@ def load() -> ctypes.CDLL:
     lib.permute_cols.restype = i32
     lib.permute_cols.argtypes = [
         ctypes.POINTER(vp), ctypes.POINTER(vp), i32, vp, vp, vp, i64, vp]
+    lib.uvwt_interp.restype = i32
+    lib.uvwt_interp.argtypes = [vp] * 7 + [i64, i32, i32, i32, vp]
+    lib.meso_sigma.restype = i32
+    lib.meso_sigma.argtypes = [vp] * 3 + [i64, i32, i32, i32, vp]
+    lib.lane_interp_uvwt.restype = i32
+    lib.lane_interp_uvwt.argtypes = [vp] * 4 + [i64, vp]
+    lib.lane_meso_sigma.restype = i32
+    lib.lane_meso_sigma.argtypes = [vp] * 3 + [i64, vp]
+    lib.uvw_rows_interp.restype = i32
+    lib.uvw_rows_interp.argtypes = [vp] * 4 + [i64, i32, i32, i64, vp]
     return lib
 
 
@@ -155,6 +170,19 @@ def require_f32_cuda(name: str, t, shape=None) -> None:
     if not (isinstance(t, torch.Tensor) and t.is_cuda
             and t.dtype == torch.float32 and t.is_contiguous()):
         raise ValueError(f"{name}: expected a contiguous float32 CUDA "
+                         f"tensor, got {t!r:.200}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def require_i32_cuda(name: str, t, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous int32 CUDA tensor (of
+    ``shape`` when given)."""
+    import torch
+    if not (isinstance(t, torch.Tensor) and t.is_cuda
+            and t.dtype == torch.int32 and t.is_contiguous()):
+        raise ValueError(f"{name}: expected a contiguous int32 CUDA "
                          f"tensor, got {t!r:.200}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "

@@ -57,19 +57,26 @@ class CellPack:
     cartesian: bool = False
 
 
+def build_cell_table(met01: Met) -> torch.Tensor:
+    """[npl, nx, ny, 8] float32 per-cell table of a stacked met pair
+    (see module docstring); also the wind table of the unfused kernels
+    (ops.slab_interp.interp_uvwt, meso_sigma)."""
+    f3 = met01.fields3d
+    u, v, w = f3["u"], f3["v"], f3["w"]
+    t = f3.get("t")
+    flds = [u[0], v[0], w[0], u[1], v[1], w[1]]
+    flds += [t[0], t[1]] if t is not None else [torch.zeros_like(u[0])] * 2
+    # [nx, ny, npl, 8] -> level-major [npl, nx, ny, 8]
+    return (torch.stack([f.to(torch.float32) for f in flds], dim=-1)
+            .permute(2, 0, 1, 3).contiguous())
+
+
 def build_cell_pack(met01: Met) -> CellPack:
     """Build the per-cell table and read the axis parameters to the
     host.  Call once per met interval (this is the one place that waits
     for the device)."""
-    f3 = met01.fields3d
-    u, v, w = f3["u"], f3["v"], f3["w"]
-    t = f3.get("t")
-    nx, ny, npl = u.shape[-3:]
-    flds = [u[0], v[0], w[0], u[1], v[1], w[1]]
-    flds += [t[0], t[1]] if t is not None else [torch.zeros_like(u[0])] * 2
-    # [nx, ny, npl, 8] -> level-major [npl, nx, ny, 8]
-    table = (torch.stack([f.to(torch.float32) for f in flds], dim=-1)
-             .permute(2, 0, 1, 3).contiguous())
+    table = build_cell_table(met01)
+    npl, nx, ny = table.shape[:3]
 
     lons, lats, ps = grid_axes(met01)
     f32 = np.float32
@@ -150,11 +157,22 @@ def locate_plain(pack: CellPack, xlon, xlat, xp):
     return cell, wx, wy, wz
 
 
-def _plain_serve(pack: CellPack, cell):
-    """8 corner rows [n, 8], corner order (dx, dy, dz) lexicographic."""
-    rows = pack.table.reshape(-1, 8)
-    oz = pack.nx * pack.ny
-    return [rows[cell + dx * pack.ny + dy + dz * oz]
+def _cell_corner_rows(table, cell):
+    """8 corner rows [n, 8] of the per-cell table at flat level-major
+    cells, corner order (dx, dy, dz) lexicographic, the upper corner
+    clamped at the last node of its axis (a located cell never needs
+    the clamp: its indices stop one node short)."""
+    npl, nx, ny = table.shape[:3]
+    c = cell.to(torch.int64)
+    iy = c % ny
+    t = torch.div(c, ny, rounding_mode="floor")
+    ix = t % nx
+    iz = torch.div(t, nx, rounding_mode="floor")
+    sx = torch.where(ix < nx - 1, ny, 0)
+    sy = torch.where(iy < ny - 1, 1, 0)
+    sz = torch.where(iz < npl - 1, nx * ny, 0)
+    rows = table.reshape(-1, 8)
+    return [rows[c + dx * sx + dy * sy + dz * sz]
             for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
 
 
@@ -168,6 +186,36 @@ def _plain_trilerp(vals, wx, wy, wz):
     a0 = L(wy, a00, a01)
     a1 = L(wy, a10, a11)
     return L(wx, a0, a1)                               # [n, 8]
+
+
+def _plain_uvwt(vals, wx, wy, wz, wt):
+    """(u, v, w, T) [n] from 8 corner rows [n, 8]: each field in space
+    (z, y, x), then in time, ``w * (a - b) + b`` throughout."""
+    f = _plain_trilerp(vals, wx, wy, wz)
+    return tuple(wt * (f[:, a] - f[:, b]) + f[:, b]
+                 for a, b in ((0, 3), (1, 4), (2, 5), (6, 7)))
+
+
+def _plain_sigma16(vals):
+    """(su, sv, sw) [n] from 8 corner rows [n, >= 6]: mean and mean
+    square over 8 corners x 2 snapshots in the reference's order
+    (corner outer, snapshot inner)."""
+    sigs = []
+    for comp in range(3):
+        mean = torch.zeros_like(vals[0][:, 0])
+        msq = torch.zeros_like(mean)
+        for k in range(8):
+            for s in (0, 1):
+                val = vals[k][:, comp + 3 * s]
+                mean = mean + val
+                msq = msq + val * val
+        mean = mean * (1.0 / 16.0)
+        msq = msq * (1.0 / 16.0)
+        var = msq - mean * mean
+        sigs.append(torch.where(var > 0,
+                                torch.sqrt(torch.clamp(var, min=0.0)),
+                                torch.zeros_like(var)))
+    return sigs
 
 
 def rk_plain(pack: CellPack, nstage: int, lon, lat, p, dtp, wt0):
@@ -189,7 +237,7 @@ def rk_plain(pack: CellPack, nstage: int, lon, lat, p, dtp, wt0):
             xp = p + dts * wprev
         wt = wt0 - (frac * dtp) * inv_tden
         cell, wx, wy, wz = locate_plain(pack, xlon, xlat, xp)
-        f = _plain_trilerp(_plain_serve(pack, cell), wx, wy, wz)
+        f = _plain_trilerp(_cell_corner_rows(pack.table, cell), wx, wy, wz)
         ui = wt * (f[:, 0] - f[:, 3]) + f[:, 3]
         vi = wt * (f[:, 1] - f[:, 4]) + f[:, 4]
         wi = wt * (f[:, 2] - f[:, 5]) + f[:, 5]
@@ -204,24 +252,10 @@ def rk_plain(pack: CellPack, nstage: int, lon, lat, p, dtp, wt0):
     np_ = p + dtp * wm
     wtf = wt0 - dtp * inv_tden
     cellf, wxf, wyf, wzf = locate_plain(pack, nlon, nlat, np_)
-    valsf = _plain_serve(pack, cellf)
+    valsf = _cell_corner_rows(pack.table, cellf)
     ff = _plain_trilerp(valsf, wxf, wyf, wzf)
     T = wtf * (ff[:, 6] - ff[:, 7]) + ff[:, 7]
-    sigs = []
-    for comp in range(3):
-        mean = torch.zeros_like(T)
-        msq = torch.zeros_like(T)
-        for k in range(8):
-            for s in (0, 1):
-                val = valsf[k][:, comp + 3 * s]
-                mean = mean + val
-                msq = msq + val * val
-        mean = mean * (1.0 / 16.0)
-        msq = msq * (1.0 / 16.0)
-        var = msq - mean * mean
-        sigs.append(torch.where(var > 0,
-                                torch.sqrt(torch.clamp(var, min=0.0)),
-                                torch.zeros_like(var)))
+    sigs = _plain_sigma16(valsf)
     return nlon, nlat, np_, sigs[0], sigs[1], sigs[2], T
 
 

@@ -1,19 +1,31 @@
-"""Surface-field interpolation and state-column permutation kernels.
+"""Wind, sigma and surface-field interpolation and state-column
+permutation kernels.
 
-Counterpart of the two modes of the JAX package's ``ops/slab_interp.py``
-kernel that the flagship step reaches:
+Counterpart of the four modes of the JAX package's
+``ops/slab_interp.py`` kernel:
 
 * ``interp_sfc`` / ``sfc_from_loc`` (mode ``("sfc", fields)``): bilinear
   + time interpolation of selected ones of the 16 hot surface fields,
   with the reference's nearest-neighbour fallback for non-finite
   corners and the single-snapshot fallback (c:3084-3166);
 * ``permute_cols`` (mode ``"gather8"``, ``permute_f32_cols``): the
-  column permutation of the sort.
+  column permutation of the sort;
+* ``interp_uvwt`` / ``uvwt_from_loc`` (mode ``"uvwt"``): trilinear +
+  time interpolation of u, v, w and T, the interpolation of the unfused
+  advection and of the meteo sampling;
+* ``meso_sigma`` (mode ``"meso"``): the 16-point subgrid wind sigma of
+  the unfused mesoscale diffusion.
 
-A GPU thread gathers for its own parcel, so neither needs sorted input,
+The last two read the per-cell table of ``ops.rk_fused``
+(``build_cell_table``, ``[npl, nx, ny, 8]`` float32, level-major) and
+take a flat level-major cell ``(iz*nx + ix)*ny + iy``; the upper
+corner of an axis repeats the last node where the cell is the last one.
+
+A GPU thread gathers for its own parcel, so none needs sorted input,
 windows or a repair pass: every parcel is served and any permutation is
-exact.  CUDA tensors go to the kernels in ``csrc/sfc_interp.cu`` and
-``csrc/permute_cols.cu`` (or raise); CPU tensors to the plain versions
+exact.  CUDA tensors go to the kernels in ``csrc/sfc_interp.cu``,
+``csrc/permute_cols.cu``, ``csrc/uvwt_interp.cu`` and
+``csrc/meso_sigma.cu`` (or raise); CPU tensors to the plain versions
 below, which repeat the kernels' arithmetic.
 """
 
@@ -24,7 +36,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from mptrac_tpu_torch.ops import _cuda
+from mptrac_tpu_torch.ops import _cuda, rk_fused
 from mptrac_tpu_torch.types import Met
 
 #: 2-D fields packed by build_sfc_table, in field order (the JAX
@@ -85,11 +97,7 @@ def _sfc_cuda(table, basexy, wx, wy, wt, fields):
     _cuda.require_f32_cuda("sfc_interp table", table, (nx, ny, 2, 16))
     for name, t in (("wx", wx), ("wy", wy), ("wt", wt)):
         _cuda.require_f32_cuda("sfc_interp " + name, t, (n,))
-    if not (basexy.is_cuda and basexy.dtype == torch.int32
-            and basexy.is_contiguous()):
-        raise ValueError("sfc_interp basexy: expected a contiguous int32 "
-                         f"CUDA tensor, got {basexy.dtype} on "
-                         f"{basexy.device}")
+    _cuda.require_i32_cuda("sfc_interp basexy", basexy, (n,))
     packed = 0
     for k, f in enumerate(fields):
         packed |= f << (4 * k)
@@ -197,3 +205,105 @@ def permute_cols(cols32: Sequence[torch.Tensor], perm,
     if perm.is_cuda:
         return _permute_cuda(list(cols32), perm, col64)
     return permute_cols_plain(cols32, perm, col64)
+
+
+# ------------------------------------------------------------ K4, K5
+
+def _require_cell_table(name, table):
+    if table.dim() != 4 or table.shape[3] != 8:
+        raise ValueError(f"{name}: expected a [npl, nx, ny, 8] table, got "
+                         f"{tuple(table.shape)}")
+    if table.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: table too large for 32-bit cell "
+                         "arithmetic")
+
+
+def uvwt_interp_plain(table, cell, wx, wy, wz, wt):
+    """Plain PyTorch version of the uvwt kernel: [4, n] (u, v, w, T)."""
+    return torch.stack(rk_fused._plain_uvwt(
+        rk_fused._cell_corner_rows(table, cell), wx, wy, wz, wt))
+
+
+def _uvwt_cuda(table, cell, wx, wy, wz, wt):
+    n = cell.shape[0]
+    npl, nx, ny = table.shape[:3]
+    _cuda.require_f32_cuda("uvwt_interp table", table)
+    _cuda.require_i32_cuda("uvwt_interp cell", cell, (n,))
+    for name, t in (("wx", wx), ("wy", wy), ("wz", wz), ("wt", wt)):
+        _cuda.require_f32_cuda("uvwt_interp " + name, t, (n,))
+    lib = _cuda.load()
+    out = torch.empty((4, n), dtype=torch.float32, device=table.device)
+    with torch.cuda.device(table.device):
+        code = lib.uvwt_interp(
+            table.data_ptr(), cell.data_ptr(), wx.data_ptr(),
+            wy.data_ptr(), wz.data_ptr(), wt.data_ptr(), out.data_ptr(),
+            n, nx, ny, npl, _cuda.current_stream(table.device))
+    _cuda.check(code, "uvwt_interp")
+    _cuda.launch_counts["uvwt_interp"] += 1
+    return out
+
+
+def interp_uvwt(table, cell, weights):
+    """(u, v, w, T) at located parcel positions, in any parcel order.
+
+    table [npl, nx, ny, 8] f32 (rk_fused.build_cell_table); cell [n]
+    int32 flat level-major cell (iz*nx + ix)*ny + iy; weights = (wx,
+    wy, wz, wt) f32 [n], each the weight of the lower index (wt of
+    snapshot 0).  Returns [4, n] f32."""
+    _require_cell_table("interp_uvwt", table)
+    wx, wy, wz, wt = weights
+    if table.is_cuda:
+        return _uvwt_cuda(table, cell, wx, wy, wz, wt)
+    return uvwt_interp_plain(table, cell, wx, wy, wz, wt)
+
+
+def cell_from_loc(table, loc):
+    """int32 flat level-major cell of a Locator in ``table``."""
+    nx, ny = table.shape[1:3]
+    return ((loc.iz * nx + loc.ix) * ny + loc.iy).to(torch.int32)
+
+
+def uvwt_from_loc(table, met01: Met, ts, loc):
+    """(u, v, w, T) at located parcel positions through the uvwt
+    kernel, in the dtype of the grid axes: the drop-in for four
+    ``interp.interp_time_3d`` calls (float32 arithmetic)."""
+    from mptrac_tpu_torch.ops import interp
+    wt = interp.time_weight(met01, ts)
+    w4 = tuple(x.to(torch.float32).contiguous()
+               for x in (loc.wx, loc.wy, loc.wz, wt))
+    out = interp_uvwt(table, cell_from_loc(table, loc), w4)
+    dtype = met01.lon.dtype
+    return tuple(out[k].to(dtype) for k in range(4))
+
+
+def meso_sigma_plain(table, cell):
+    """Plain PyTorch version of the sigma kernel: [3, n]."""
+    return torch.stack(rk_fused._plain_sigma16(
+        rk_fused._cell_corner_rows(table, cell)))
+
+
+def _meso_cuda(table, cell):
+    n = cell.shape[0]
+    npl, nx, ny = table.shape[:3]
+    _cuda.require_f32_cuda("meso_sigma table", table)
+    _cuda.require_i32_cuda("meso_sigma cell", cell, (n,))
+    lib = _cuda.load()
+    out = torch.empty((3, n), dtype=torch.float32, device=table.device)
+    with torch.cuda.device(table.device):
+        code = lib.meso_sigma(
+            table.data_ptr(), cell.data_ptr(), out.data_ptr(), n, nx, ny,
+            npl, _cuda.current_stream(table.device))
+    _cuda.check(code, "meso_sigma")
+    _cuda.launch_counts["meso_sigma"] += 1
+    return out
+
+
+def meso_sigma(table, cell):
+    """Subgrid wind sigma (su, sv, sw) of each parcel's cell: standard
+    deviation of u, v, w over the cell's 8 corners x 2 snapshots, summed
+    in float32 in the reference's order (c:4280-4304).  Arguments as
+    ``interp_uvwt``; returns [3, n] f32."""
+    _require_cell_table("meso_sigma", table)
+    if table.is_cuda:
+        return _meso_cuda(table, cell)
+    return meso_sigma_plain(table, cell)

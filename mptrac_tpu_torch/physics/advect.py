@@ -1,7 +1,10 @@
 """Advection: Euler / midpoint / RK4 integration of the wind field
 (reference module_advect, mptrac.c:3598-3789).  Counterpart of the JAX
-package's ``physics/advect.py``: only the fused path
-(``module_advect_fused``) is ported."""
+package's ``physics/advect.py``: the fused path
+(``module_advect_fused``) and the unfused kinematic path on pressure
+levels (``module_advect``, one interpolation per RK node through the
+uvwt kernel or the exact ``interp_time_3d``).  The zeta/eta vertical
+coordinates are not ported."""
 
 from __future__ import annotations
 
@@ -9,7 +12,21 @@ import torch
 
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.ops import interp, rk_fused
+from mptrac_tpu_torch.ops.thermo import dx2coord, dy2coord
 from mptrac_tpu_torch.types import Atm, Cache, Met
+
+
+def module_advect(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
+                  packT=None):
+    """Unfused advection; returns (atm, cache).  ``packT`` is the wind
+    table of the uvwt kernel (ops.slab_interp); without it the exact
+    interpolation runs."""
+    if ctl.advect_vert_coord != 0:
+        raise NotImplementedError(
+            f"module_advect: ADVECT_VERT_COORD {ctl.advect_vert_coord} "
+            "(model-level and zeta/eta advection) needs interp_4d_zeta, "
+            "which is not ported to mptrac_tpu_torch yet")
+    return _advect_plev(ctl, cache, met01, atm, packT), cache
 
 
 def module_advect_fused(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
@@ -37,3 +54,62 @@ def module_advect_fused(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
         lat=torch.where(active, nlat, atm.lat),
         p=torch.where(active, np_, atm.p))
     return atm, cache, (su, sv, sw), T
+
+
+def _rk_weight(ctl: Ctl, i: int) -> float:
+    if ctl.advect == 2:
+        return 0.0 if i == 0 else 1.0
+    if ctl.advect == 4:
+        return 1.0 / 6.0 if i in (0, 3) else 2.0 / 6.0
+    return 1.0
+
+
+def _advect_plev(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
+                 packT=None) -> Atm:
+    """Kinematic advection with omega on pressure levels
+    (ADVECT_VERT_COORD 0): a loop over the RK nodes, each one locate
+    and one interpolation of u, v, w over all parcels."""
+    cart = met01.coord_type != 0
+    dt = cache.dt
+    active = (dt != 0.0) & atm.mask
+
+    um = vm = wm = 0.0
+    u = v = w = None
+    for i in range(ctl.advect):
+        if i == 0:
+            dts = 0.0
+            x = (atm.lon, atm.lat, atm.p)
+        else:
+            dts = (1.0 if i == 3 else 0.5) * dt
+            x = (atm.lon + dx2coord(dts * u, atm.lat, cart),
+                 atm.lat + dy2coord(dts * v, cart),
+                 atm.p + dts * w)
+        tm = atm.time + dts
+        loc = interp.locate_3d(met01, x[0], x[1], x[2])
+        if packT is not None:
+            from mptrac_tpu_torch.ops import slab_interp
+            u, v, w, _ = slab_interp.uvwt_from_loc(packT, met01, tm, loc)
+        else:
+            u = interp.interp_time_3d(met01, "u", tm, loc)
+            v = interp.interp_time_3d(met01, "v", tm, loc)
+            w = interp.interp_time_3d(met01, "w", tm, loc)
+        del loc, tm
+        k = _rk_weight(ctl, i)
+        um = um + k * u
+        vm = vm + k * v
+        wm = wm + k * w
+        lat_node = x[1]
+        del x
+
+    # The reference converts the final zonal step at the last RK
+    # node's latitude under the midpoint scheme (c:3674).
+    lat_for_dx = lat_node if ctl.advect == 2 else atm.lat
+    new_time = atm.time + dt
+    new_lon = atm.lon + dx2coord(dt * um, lat_for_dx, cart)
+    new_lat = atm.lat + dy2coord(dt * vm, cart)
+    new_p = atm.p + dt * wm
+    return atm.replace(
+        time=torch.where(active, new_time, atm.time),
+        lon=torch.where(active, new_lon, atm.lon),
+        lat=torch.where(active, new_lat, atm.lat),
+        p=torch.where(active, new_p, atm.p))

@@ -128,17 +128,45 @@ def module_diff_turb(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
     return atm.replace(lon=lon, lat=lat, p=p_new), cache
 
 
+def _meso_sigma_exact(met01: Met, ix, iy, iz):
+    """(usig, vsig, wsig): the 16-point stencil on the met fields
+    themselves, accumulated in float32 in the reference's order
+    (c:4280-4304)."""
+    n = ix.shape[0]
+    ix, iy, iz = ix.to(torch.int64), iy.to(torch.int64), iz.to(torch.int64)
+
+    def sig(field):
+        nx, ny, npl = field.shape[-3:]
+        flat = field.reshape(2, nx * ny * npl)
+        mean = torch.zeros(n, dtype=torch.float32, device=field.device)
+        msq = torch.zeros_like(mean)
+        for di in (0, 1):
+            for dj in (0, 1):
+                for dk in (0, 1):
+                    idx = ((ix + di) * ny + (iy + dj)) * npl + (iz + dk)
+                    for t in (0, 1):
+                        val = flat[t][idx]
+                        mean = mean + val
+                        msq = msq + val * val
+        var = msq / 16.0 - (mean / 16.0) ** 2
+        return torch.where(var > 0, torch.sqrt(var), 0.0).to(torch.float32)
+
+    f3 = met01.fields3d
+    return sig(f3["u"]), sig(f3["v"]), sig(f3["w"])
+
+
 def module_diff_meso(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
-                     sig=None):
+                     packT=None, sig=None):
     """Mesoscale wind fluctuations: AR(1) colored noise scaled to the
-    local subgrid wind variance (reference c:4258-4335).  ``sig``
-    supplies (usig, vsig, wsig) from the fused RK kernel
-    (ops.rk_fused); computing the 16-point variance here (the unfused
-    path of the JAX package) is not ported."""
-    if sig is None:
-        raise NotImplementedError(
-            "module_diff_meso without sig= (the unfused subgrid-sigma "
-            "stencil, kernel K5 meso_sigma) is not ported")
+    local subgrid wind variance (reference c:4258-4335).
+
+    ``sig`` supplies (usig, vsig, wsig) from the fused RK kernel
+    (ops.rk_fused).  Without it the 16-point variance of the parcel's
+    cell is computed here: through the sigma kernel
+    (ops.slab_interp.meso_sigma) when ``packT``, its wind table, is
+    given, else on the met fields.  The cell is located on the raw
+    position (no longitude wrap, no latitude clamp), as the reference
+    does in this module."""
     n = atm.npmax
     rs, ctr = module_rng3(ctl.rng_type, cache.rng_ctr, n,
                           dtype=atm.lon.dtype, device=atm.lon.device)
@@ -146,7 +174,23 @@ def module_diff_meso(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
 
     dt = cache.dt
     active = (dt != 0.0) & atm.mask
-    usig, vsig, wsig = sig
+
+    if sig is not None:
+        usig, vsig, wsig = sig
+    else:
+        lons, lats, ps = grid_axes(met01)
+        ix = interp.locate_reg(lons, atm.lon)
+        iy = interp.locate_irr(lats, atm.lat)
+        iz = interp.locate_irr(ps, atm.p)
+        if packT is not None:
+            from mptrac_tpu_torch.ops import slab_interp
+            nx, ny = lons.shape[0], lats.shape[0]
+            cell = ((iz * nx + ix) * ny + iy).to(torch.int32)
+            del ix, iy, iz
+            usig, vsig, wsig = slab_interp.meso_sigma(packT, cell)
+            del cell
+        else:
+            usig, vsig, wsig = _meso_sigma_exact(met01, ix, iy, iz)
 
     r = 1.0 - 2.0 * torch.abs(dt) / ctl.dt_met
     r2 = torch.sqrt(1.0 - r * r)

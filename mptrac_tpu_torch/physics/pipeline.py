@@ -3,10 +3,14 @@
 Counterpart of the JAX package's ``physics/pipeline.py:31-207`` (the
 reference ``mptrac_run_timestep``, mptrac.c:7545-7694): the fixed
 module order with the enables resolved from Ctl on the host.  Eager:
-one call runs one step.  Ported so far is the flagship path
-(timesteps, position, fused advection, turbulent and mesoscale
-diffusion, meteo sampling, decay); a gate that would reach a module
-that is not ported raises ``NotImplementedError`` naming it.
+one call runs one step.  Ported so far: timesteps, position, advection
+on pressure levels (fused, unfused through the kernels, or exact),
+turbulent and mesoscale diffusion, meteo sampling (all but the
+climatological quantities) and decay.  The pack decides the path: with
+``pack.cell`` the fused RK kernel, with ``pack.packT`` the unfused
+kernels, without a pack (or with a float64 state) the exact
+interpolation.  A gate that would reach a module that is not ported
+raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -46,8 +50,11 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
     """One model timestep; mirrors the reference module order.
 
     ``t`` is the model time (Python float); ``pack`` the gather tables
-    of ``ops.fast_interp.build_met_pack(met01, cell=True)``."""
+    of ``ops.fast_interp.build_met_pack`` or None."""
+    # The kernels compute in float32: their tables serve only the
+    # float32 compute mode
     fp32 = met01.lon.dtype == torch.float32
+    packT = pack.packT if pack is not None and fp32 else None
     sfcT = pack.sfcT if pack is not None and fp32 else None
     # Per-cell fused-RK kernel (ops.rk_fused): advect + meso sigma +
     # meteo T in ONE pass
@@ -67,12 +74,12 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
     fused_sig = None
     fused_t = None
     if ctl.advect > 0:
-        if cell is None:
-            _unported("module_advect (the unfused path: it needs a "
-                      "float32 state, pack.cell, ADVECT_VERT_COORD 0 "
-                      "and ADVECT 1, 2 or 4 to take the fused kernel)")
-        atm, cache, fused_sig, fused_t = m_advect.module_advect_fused(
-            ctl, cache, met01, atm, cell)
+        if cell is not None:
+            atm, cache, fused_sig, fused_t = m_advect.module_advect_fused(
+                ctl, cache, met01, atm, cell)
+        else:
+            atm, cache = m_advect.module_advect(ctl, cache, met01, atm,
+                                                packT)
 
     # Turbulent diffusion
     if ctl.diffusion and (
@@ -89,7 +96,7 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
     # Mesoscale diffusion
     if ctl.diffusion and (ctl.turb_mesox > 0 or ctl.turb_mesoz > 0):
         atm, cache = m_diff.module_diff_meso(ctl, cache, met01, atm,
-                                             sig=fused_sig)
+                                             packT, sig=fused_sig)
 
     # Convection
     if (ctl.conv_mix_pbl or ctl.conv_cape >= 0) and flags.do_conv:

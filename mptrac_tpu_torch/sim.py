@@ -4,8 +4,8 @@ Counterpart of the step loop of the JAX package's ``sim.py``
 (``Simulation.advance`` and the sort policy, :201-235, :286-303; the
 reference loop is trac.c:122-160): sort when due, run the timestep,
 advance the model time.  The met pair and its gather tables are handed
-in; file-backed met buffering, outputs and checkpoints are not ported
-yet.
+in (``build_pack`` makes the tables that ``TPU_FAST`` asks for);
+file-backed met buffering, outputs and checkpoints are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,10 +14,22 @@ import math
 from typing import Iterable, Optional
 
 from mptrac_tpu_torch.config import Ctl
-from mptrac_tpu_torch.ops.fast_interp import MetPack
+from mptrac_tpu_torch.ops.fast_interp import MetPack, build_met_pack
 from mptrac_tpu_torch.ops.sort import module_sort
 from mptrac_tpu_torch.physics import pipeline
 from mptrac_tpu_torch.types import Atm, Cache, Clim, Met
+
+
+def build_pack(ctl: Ctl, met01: Met) -> Optional[MetPack]:
+    """The gather tables that the control parameters ask for, as the
+    JAX package's ``Simulation._get_pack`` chooses them (rebuild once
+    per met interval): ``TPU_FAST 0`` none, the exact interpolation;
+    ``TPU_FAST >= 2`` with ``SORT_DT > 0`` the fused RK kernel's;
+    otherwise the unfused kernels'."""
+    if not ctl.tpu_fast:
+        return None
+    return build_met_pack(met01,
+                          cell=ctl.tpu_fast >= 2 and ctl.sort_dt > 0)
 
 
 class Simulation:

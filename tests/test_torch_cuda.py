@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from mptrac_tpu_torch import flagship
-from mptrac_tpu_torch.ops import interp, rk_fused, slab_interp
-from mptrac_tpu_torch.ops.fast_interp import build_met_pack
+from mptrac_tpu_torch.ops import (interp, lane_interp, pallas_interp,
+                                  rk_fused, slab_interp)
+from mptrac_tpu_torch.ops.fast_interp import (build_advect_pack,
+                                              build_met_pack)
 from mptrac_tpu_torch.ops.sort import module_sort
 from mptrac_tpu_torch.physics.timesteps import module_timesteps
 
@@ -70,3 +72,89 @@ def test_permute_kernel_bit_exact(card):
     got32, got64 = slab_interp.permute_cols(cols, perm, atm.time)
     exp32, exp64 = slab_interp.permute_cols_plain(cols, perm, atm.time)
     assert torch.equal(got32, exp32) and torch.equal(got64, exp64)
+
+
+@pytest.fixture(scope="module")
+def located(card):
+    """The card fixture's parcels located in a random per-cell table,
+    with one parcel on the last node of every axis (the clamp)."""
+    ctl, met01, atm, cache, pack = card
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    table = torch.rand(pack.cell.table.shape, device="cuda",
+                       generator=gen) * 100.0 - 50.0
+    loc = interp.locate_3d(met01, atm.lon, atm.lat, atm.p)
+    cell = slab_interp.cell_from_loc(table, loc)
+    npl, nx, ny = table.shape[:3]
+    cell[0] = npl * nx * ny - 1
+    w4 = tuple(x.contiguous() for x in (
+        loc.wx, loc.wy, loc.wz, torch.rand(atm.npmax, device="cuda",
+                                           generator=gen)))
+    return table, cell, w4
+
+
+def test_uvwt_kernel_matches_plain(located):
+    """Same float32 operations, no contraction: 2 ulp of values under
+    64 (7.7e-6)."""
+    table, cell, w4 = located
+    got = slab_interp.interp_uvwt(table, cell, w4)
+    exp = slab_interp.uvwt_interp_plain(table, cell, *w4)
+    assert float((got - exp).abs().max()) <= 7.7e-6
+
+
+def test_meso_kernel_matches_plain(located, card):
+    """On a random table and on the flagship's wind, where the variance
+    cancels from ~1e3 down to ~1: the same sums in the same order."""
+    table, cell, _ = located
+    for tab in (table, card[4].cell.table):
+        got = slab_interp.meso_sigma(tab, cell)
+        exp = slab_interp.meso_sigma_plain(tab, cell)
+        assert float((got - exp).abs().max()) <= 7.7e-6
+
+
+def test_lane_and_rows_kernels_match_plain(card):
+    """K6 (both modes) and K7 against their plain versions and against
+    K4 and K5 on the same parcels: equal values from three tables."""
+    ctl, met01, atm, cache, pack = card
+    loc = interp.locate_3d(met01, atm.lon, atm.lat, atm.p)
+    ny, npl = met01.ny, met01.npl
+    base = ((loc.ix * ny + loc.iy) * npl + loc.iz).to(torch.int32)
+    w4 = torch.stack([loc.wx, loc.wy, loc.wz,
+                      torch.rand(atm.npmax, device="cuda")])
+    lanes = lane_interp.build_lane_tables(met01)
+    uvw, t, served = lane_interp.interp_uvwt_sorted(lanes, base, w4)
+    exp = lane_interp.interp_uvwt_plain(lanes.pack64, base, w4)
+    assert served == 1.0
+    assert float((torch.cat([uvw, t[None]]) - exp).abs().max()) <= 6.2e-5
+    sig, _ = lane_interp.meso_sigma_sorted(lanes, base)
+    assert float((sig - lane_interp.meso_sigma_plain(
+        lanes.pack64, base)).abs().max()) <= 7.7e-6
+    pack8 = build_advect_pack(met01)
+    w4t = w4.T.contiguous()
+    uvw7, ok = pallas_interp.interp_uvw_sorted(pack8, base, w4t,
+                                               (ny * npl, npl))
+    exp7 = pallas_interp.interp_uvw_plain(pack8, base, w4t, (ny * npl, npl))
+    assert bool(ok.all()) and float((uvw7 - exp7).abs().max()) <= 7.7e-6
+    # bases on the table's last rows: corners past it read the last row
+    edge = torch.arange(pack8.shape[0] - 64, pack8.shape[0],
+                        dtype=torch.int32, device="cuda")
+    e7, _ = pallas_interp.interp_uvw_sorted(pack8, edge, w4t[:64],
+                                            (ny * npl, npl))
+    x7 = pallas_interp.interp_uvw_plain(pack8, edge, w4t[:64],
+                                        (ny * npl, npl))
+    assert float((e7 - x7).abs().max()) <= 7.7e-6
+    table = pack.cell.table
+    cell = slab_interp.cell_from_loc(table, loc)
+    k4 = slab_interp.interp_uvwt(table, cell, tuple(w4))
+    assert torch.equal(k4[:3], uvw) and torch.equal(k4[3], t)
+    assert torch.equal(k4[:3], uvw7.T)
+    assert torch.equal(slab_interp.meso_sigma(table, cell), sig)
+
+
+def test_cuda_tensor_never_takes_the_plain_version(located):
+    """A CUDA tensor that the kernel does not take raises; it does not
+    fall back."""
+    table, cell, w4 = located
+    with pytest.raises(ValueError, match="int32"):
+        slab_interp.interp_uvwt(table, cell.to(torch.int64), w4)
+    with pytest.raises(ValueError, match="float32"):
+        slab_interp.meso_sigma(table.double(), cell)

@@ -22,7 +22,9 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    assert "mptrac_tpu_torch.ops.rk_fused" in mods
+    for name in ("rk_fused", "slab_interp", "fast_interp", "lane_interp",
+                 "pallas_interp"):
+        assert "mptrac_tpu_torch.ops." + name in mods
     assert "mptrac_tpu_torch.sim" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -1,5 +1,6 @@
-"""K2 and K3, the plain PyTorch versions of the surface-interpolation
-and column-permute kernels, against the JAX package; and the port's
+"""K2, K3, K4 and K5, the plain PyTorch versions of the
+surface-interpolation, column-permute, wind-interpolation and
+subgrid-sigma kernels, against the JAX package; and the port's
 module_sort against the JAX module_sort."""
 
 import jax
@@ -187,3 +188,157 @@ def test_module_sort_keeps_padding_last(setup):
     a2, _ = tsort.module_sort(tmet, a, tcache)
     np.testing.assert_array_equal(a2.lon[n - 100:].numpy(),
                                   a.lon[n - 100:].numpy())
+
+
+# ------------------------------------------------------------ K4, K5
+
+@pytest.fixture(scope="module")
+def wind():
+    """The small flagship with 3-D fields that vary from node to node
+    (the solid-body wind plus noise; the wraparound column repeats the
+    first), sorted parcels with random times."""
+    ctl, clim, met01, atm, cache = small_flagship_fp32()
+    rng = np.random.default_rng(21)
+    f3 = dict(met01.fields3d)
+    for name, amp in (("u", 5.0), ("v", 5.0), ("w", 0.05), ("t", 20.0)):
+        f = np.array(f3[name]) + rng.normal(
+            0.0, amp, f3[name].shape).astype(np.float32)
+        f[:, -1] = f[:, 0]
+        f3[name] = jnp.asarray(f)
+    met01 = met01.replace(fields3d=f3)
+    atm, cache = jax.jit(jsort.module_sort)(met01, atm, cache)
+    n = atm.npmax
+    atm = atm.replace(time=jnp.asarray(rng.uniform(0.0, 3600.0, n)))
+    tatm, _, tmet, _ = to_torch(atm, cache, met01)
+    return met01, atm, tmet, tatm, rng.permutation(n)
+
+
+def _exact_sigma(met01, ix, iy, iz):
+    """The 16-point stencil of the exact module_diff_meso
+    (physics/diffusion.py:222-243 of the JAX package) in numpy float32,
+    in the reference's order."""
+    out = []
+    for name in ("u", "v", "w"):
+        f = np.asarray(met01.fields3d[name])
+        mean = np.zeros(ix.shape[0], np.float32)
+        msq = np.zeros(ix.shape[0], np.float32)
+        for di in (0, 1):
+            for dj in (0, 1):
+                for dk in (0, 1):
+                    for t in (0, 1):
+                        val = f[t, ix + di, iy + dj, iz + dk]
+                        mean = mean + val
+                        msq = msq + val * val
+        var = msq / np.float32(16.0) - (mean / np.float32(16.0)) ** 2
+        out.append(np.where(var > 0, np.sqrt(np.maximum(var, 0)), 0.0))
+    return np.stack(out).astype(np.float32)
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_uvwt_plain_matches_exact_and_pallas(wind, order):
+    """K4 against the exact ``interp_time_3d`` of both packages on every
+    parcel, and against the Pallas kernel (mode "uvwt", interpret mode)
+    on the share that agrees.  The exact path interpolates each
+    snapshot in space and then in time in the same ``w*(a-b)+b`` form;
+    the jitted graph may contract multiply-adds: the JAX tests'
+    tolerance for this pair (tests/test_slab_interp.py:58), rtol 3e-6,
+    atol 2e-5.
+
+    The Pallas kernel has to agree on more than 95 % of the parcels:
+    its cyclic unwrap, shared by all modes, serves a few percent near
+    the longitude seam wrong values on fields that vary from column to
+    column (seen first in the surface mode)."""
+    met01, atm, tmet, tatm, perm = wind
+    if order == "unsorted":
+        atm = atm.replace(time=atm.time[perm], lon=atm.lon[perm],
+                          lat=atm.lat[perm], p=atm.p[perm])
+        tatm = tatm.replace(**{k: getattr(tatm, k)[torch.from_numpy(perm)]
+                               for k in ("time", "lon", "lat", "p")})
+    loc_j = jinterp.locate_3d(met01, atm.lon, atm.lat, atm.p)
+    loc_t = tinterp.locate_3d(tmet, tatm.lon, tatm.lat, tatm.p)
+    table = tsl.rk_fused.build_cell_table(tmet)
+    assert tuple(table.shape) == (tmet.npl, tmet.nx, tmet.ny, 8)
+    got = tsl.uvwt_from_loc(table, tmet, tatm.time, loc_t)
+
+    tables = jsl.build_slab_tables(met01, sfc=False)
+    ny, npl, nx = tmet.ny, tmet.npl, tmet.nx
+    base = ((loc_j.ix * ny + loc_j.iy) * npl + loc_j.iz).astype(jnp.int32)
+    wt = jinterp.time_weight(met01, atm.time)
+    w4 = tuple(x.astype(jnp.float32)
+               for x in (loc_j.wx, loc_j.wy, loc_j.wz, wt))
+    exp_k, served = jsl.interp_uvwt(tables, base, w4, npl, ny * npl,
+                                    (nx - 1) * ny * npl, cap_frac=1,
+                                    interpret=True)
+    for k, name in enumerate(("u", "v", "w", "t")):
+        g = got[k].numpy()
+        assert g.dtype == np.float32
+        exp_j = np.asarray(jinterp.interp_time_3d(met01, name, atm.time,
+                                                  loc_j))
+        exp_t = tinterp.interp_time_3d(tmet, name, tatm.time,
+                                       loc_t).numpy()
+        np.testing.assert_allclose(g, exp_j, rtol=3e-6, atol=2e-5,
+                                   err_msg=name)
+        np.testing.assert_allclose(g, exp_t, rtol=3e-6, atol=2e-5,
+                                   err_msg=name)
+        same = np.isclose(g, np.asarray(exp_k[k]), rtol=3e-6, atol=2e-5)
+        print(f"uvwt {order} {name}: Pallas agrees on {same.mean():.4f}")
+        assert same.mean() > 0.95, (name, same.mean())
+    # the noise is really sampled: the fields differ from parcel to parcel
+    assert float(got[3].std()) > 1.0 and float(got[2].std()) > 1e-3
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_meso_sigma_plain_matches_exact_and_pallas(wind, order):
+    """K5 against the exact 16-point stencil on every parcel, and
+    against the Pallas kernel (mode "meso", interpret mode) on the share
+    that agrees (> 95 %, see the uvwt test).  The sums run in the same
+    order in float32; the variance cancels several digits, so the JAX
+    tests' tolerance for this pair (tests/test_slab_interp.py:122):
+    rtol 1e-2, atol 2e-3."""
+    met01, atm, tmet, tatm, perm = wind
+    loc_t = tinterp.locate_3d(tmet, tatm.lon, tatm.lat, tatm.p)
+    ix, iy, iz = (loc_t.ix.numpy(), loc_t.iy.numpy(), loc_t.iz.numpy())
+    if order == "unsorted":
+        ix, iy, iz = ix[perm], iy[perm], iz[perm]
+    ny, npl, nx = tmet.ny, tmet.npl, tmet.nx
+    table = tsl.rk_fused.build_cell_table(tmet)
+    cell = torch.from_numpy(((iz * nx + ix) * ny + iy).astype(np.int32))
+    got = tsl.meso_sigma(table, cell).numpy()
+    assert got.shape == (3, ix.shape[0]) and got.dtype == np.float32
+    exp = _exact_sigma(met01, ix, iy, iz)
+    np.testing.assert_allclose(got, exp, rtol=1e-2, atol=2e-3)
+    assert float(got[:2].min()) > 0.1      # noise of sigma 5 in u and v
+
+    tables = jsl.build_slab_tables(met01, sfc=False)
+    base = jnp.asarray((ix * ny + iy) * npl + iz, jnp.int32)
+    exp_k, served = jsl.meso_sigma(tables, base, npl, ny * npl,
+                                   (nx - 1) * ny * npl, cap_frac=1,
+                                   interpret=True)
+    same = np.isclose(got, np.stack([np.asarray(x) for x in exp_k]),
+                      rtol=1e-2, atol=2e-3).all(axis=0)
+    print(f"meso {order}: Pallas agrees on {same.mean():.4f}")
+    assert same.mean() > 0.95, same.mean()
+
+
+def test_uvwt_and_sigma_clamp_at_the_last_node(wind):
+    """A cell on the last node of an axis repeats that node for its
+    upper corner, as the edge padding of the JAX tables does: the value
+    there does not depend on the weight of that axis."""
+    _, _, tmet, _, _ = wind
+    table = tsl.rk_fused.build_cell_table(tmet)
+    npl, nx, ny = table.shape[:3]
+    iz, ix, iy = npl - 1, nx - 1, ny - 1
+    cell = torch.tensor([(iz * nx + ix) * ny + iy], dtype=torch.int32)
+    one, half = torch.ones(1), torch.full((1,), 0.5)
+    a = tsl.interp_uvwt(table, cell, (one, one, one, one))
+    b = tsl.interp_uvwt(table, cell, (half, half, half, one))
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    np.testing.assert_array_equal(a[:3, 0].numpy(),
+                                  table[iz, ix, iy, 0:3].numpy())
+    assert float(a[3, 0]) == float(table[iz, ix, iy, 6])
+    # 16 values that are 8 copies of two: sigma of the two snapshots
+    s = tsl.meso_sigma(table, cell)
+    u0, u1 = float(table[iz, ix, iy, 0]), float(table[iz, ix, iy, 3])
+    assert abs(float(s[0, 0]) - abs(u0 - u1) / 2) < 2e-3
+    with pytest.raises(ValueError, match="table"):
+        tsl.interp_uvwt(table[..., :4], cell, (one, one, one, one))
