@@ -36,10 +36,28 @@ non-zero code and prints no result.  Phases, each of which must pass:
    like the others.  All kernels are printed as one JSON line
    ``{"kernels": [...]}``;
 7. card against CPU: 10 steps at the tests' size on "cuda" and on "cpu",
-   for the fused path, the unfused path and the exact float64 path.
+   for the fused path, the unfused path and the exact float64 path;
+8. trac path: the run a user starts from files.  In a temporary
+   directory: three netCDF met snapshots of the flagship wind one hour
+   apart, a binary particle file of N parcels, a control file with the
+   flagship's parameters and a dirlist; then
+   ``mptrac_tpu_torch.tools.trac`` on them with ``--dtype float32`` on
+   the card (met ingest, ``MetBuffer``, the fused step, one met swap and
+   two sorts inside, binary particle output at the end), with the seconds
+   of every met file, of reading and writing the particles, the
+   milliseconds of every step and of the table rebuilds, and the timer
+   table.  The output file is read back and checked;
+9. trac against CPU: the same through files at the tests' size on "cuda"
+   and on "cpu", float32 fused and float64 exact;
+10. probes: ``mptrac_tpu_torch.perf.probe lane grid small`` (kernels
+    P1-P3) driven through its entry point with the counts zeroed before
+    and read after, then each kernel against its plain version on every
+    element at 2,000,000 and at N parcels, with times and bounds.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+The ``{"kernels": [...]}`` line lists K1-K7 and P1-P3.
 
 N is fixed at 100,663,296 parcels (100M rounded up to a multiple of
 2^21, the size the JAX benchmark uses).  ``--np`` and ``--steps`` exist
@@ -53,8 +71,10 @@ import importlib.metadata
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 os.environ.setdefault("LOGLEV", "0")
@@ -72,6 +92,13 @@ PEAK_F32_OPS_S = 67e12
 
 #: parcels per pass of a plain version (bounds its temporaries)
 PLAIN_CHUNK = 1 << 22
+
+#: card against CPU after ten steps at the tests' size (why these: see
+#: phase_card_vs_cpu)
+TOLS_F32 = dict(lon=6.2e-4, lat=6.2e-4, p=6.2e-4, t=6.2e-5, m=2e-6,
+                uvwp=5e-3, rh=1e-4, sh=1e-9)
+TOLS_F64 = dict(lon=1e-7, lat=1e-7, p=5e-6, t=1e-9, m=1e-12, uvwp=5e-6,
+                rh=1e-6, sh=1e-12)
 
 #: quantities sampled on the unfused path: straight 3-D samplings (the
 #: uvwt kernel), a derived quantity and a surface field (the surface
@@ -168,23 +195,18 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args):
     returns (sim, counts, stats)."""
     from mptrac_tpu_torch import flagship
     from mptrac_tpu_torch.ops import _cuda
-    from mptrac_tpu_torch.physics.timesteps import init_time_range
-    from mptrac_tpu_torch.sim import Simulation, build_pack
+    from mptrac_tpu_torch.sim import FixedMet, Simulation
 
     t0 = time.time()
     ctl, clim, met01, atm, cache = flagship.make_setup(
         n, *GRID, extra_args=("SORT_DT", str(int(SORT_DT))) + extra_args,
         device="cuda")
-    ctl = init_time_range(ctl, [0.0])
-    pack = build_pack(ctl, met01)
-    torch.cuda.synchronize()
-    tables = {k: v.table if k == "cell" else v
-              for k, v in pack._asdict().items() if v is not None}
-    say(f"[{tag}] set-up of {n} parcels on {GRID[0]}x{GRID[1]}x{GRID[2]} "
-        f"in {time.time() - t0:.1f} s; tables " + ", ".join(
-            f"{k} {v.numel() * 4 / 1e6:.1f} MB" for k, v in tables.items()))
-    sim = Simulation(ctl, clim, met01, atm, cache, pack)
+    sim = Simulation(ctl, atm, clim, met=FixedMet(met01), cache=cache)
+    ctl = sim.ctl
     del atm, cache
+    torch.cuda.synchronize()
+    say(f"[{tag}] set-up of {n} parcels on {GRID[0]}x{GRID[1]}x{GRID[2]} "
+        f"in {time.time() - t0:.1f} s")
     dt_mod = ctl.dt_mod
     total = WARMUP_STEPS + steps
     ts = [dt_mod * (i + 1) for i in range(total)]
@@ -197,14 +219,19 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args):
     sort0_s = time.time() - t0
     lon_sorted = sim.atm.lon.clone()
     t0 = time.time()
-    sim.run(ts[:WARMUP_STEPS])
+    sim.run(write_output=False, ts=ts[:WARMUP_STEPS])
     torch.cuda.synchronize()
     warm_s = time.time() - t0
+    # (the loop built the tables that TPU_FAST asks for at its first step)
+    tables = {k: v.table if k == "cell" else v
+              for k, v in sim.pack._asdict().items() if v is not None}
+    say(f"[{tag}] tables " + ", ".join(
+        f"{k} {v.numel() * 4 / 1e6:.1f} MB" for k, v in tables.items()))
     # (no sort falls into the warm-up, so parcels keep their places)
     moved = float((sim.atm.lon - lon_sorted).abs().max())
     del lon_sorted
     t0 = time.time()
-    sim.run(ts[WARMUP_STEPS:])
+    sim.run(write_output=False, ts=ts[WARMUP_STEPS:])
     torch.cuda.synchronize()
     timed_s = time.time() - t0
     counts = dict(_cuda.launch_counts)       # ... and ends here
@@ -336,7 +363,7 @@ def profile_steps(torch, sim, ts2):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        sim.run(ts2)
+        sim.run(write_output=False, ts=ts2)
         e1.record()
         torch.cuda.synchronize()
     finally:
@@ -354,7 +381,7 @@ def profile_steps(torch, sim, ts2):
     ts3 = [ts2[-1] + sim.ctl.dt_mod * (i + 1) for i in range(2)]
     with prof(activities=[ProfilerActivity.CPU,
                           ProfilerActivity.CUDA]) as trace:
-        sim.run(ts3)
+        sim.run(write_output=False, ts=ts3)
         torch.cuda.synchronize()
     say(trace.key_averages().table(sort_by="cuda_time_total", row_limit=30))
     return per
@@ -374,7 +401,7 @@ def phase_kernels(torch, sim, counts):
     from mptrac_tpu_torch.ops import interp, rk_fused, slab_interp
     from mptrac_tpu_torch.physics.timesteps import module_timesteps
 
-    atm, cache, met01, pack = sim.atm, sim.cache, sim.met01, sim.pack
+    atm, cache, met01, pack = sim.atm, sim.cache, sim.met.pair, sim.pack
     n = atm.npmax
     t_next = float(atm.time[0]) + sim.ctl.dt_mod
     cache = module_timesteps(sim.ctl, cache, met01, atm, t_next)
@@ -563,7 +590,7 @@ def phase_kernels_unfused(torch, sim, counts):
                                       lane_interp, pallas_interp,
                                       slab_interp)
 
-    atm, met01, table = sim.atm, sim.met01, sim.pack.packT
+    atm, met01, table = sim.atm, sim.met.pair, sim.pack.packT
     n = atm.npmax
     npl, nx, ny = table.shape[:3]
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -762,8 +789,7 @@ def phase_card_vs_cpu(torch):
     sh, so the humidity branch of module_meteo runs on the card."""
     from mptrac_tpu_torch import flagship
     from mptrac_tpu_torch.ops import thermo
-    from mptrac_tpu_torch.physics.timesteps import init_time_range
-    from mptrac_tpu_torch.sim import Simulation, build_pack
+    from mptrac_tpu_torch.sim import FixedMet, Simulation
 
     f32, f64 = torch.float32, torch.float64
     #: float32: the two sides differ by the math libraries' cos, log,
@@ -774,10 +800,7 @@ def phase_card_vs_cpu(torch):
     #: libraries, times a step's random displacement (~1e-2 deg, a few
     #: hPa), over ten steps; T is uniform, m is one exp per step.
     #: rh follows p (36 % at 900 hPa: 4e-2 % per hPa); sh is uniform.
-    tols32 = dict(lon=6.2e-4, lat=6.2e-4, p=6.2e-4, t=6.2e-5, m=2e-6,
-                  uvwp=5e-3, rh=1e-4, sh=1e-9)
-    tols64 = dict(lon=1e-7, lat=1e-7, p=5e-6, t=1e-9, m=1e-12, uvwp=5e-6,
-                  rh=1e-6, sh=1e-12)
+    tols32, tols64 = TOLS_F32, TOLS_F64
     humid = ("NQ", "4", "QNT_NAME[2]", "rh", "QNT_NAME[3]", "sh")
     q_humid = 4e-3
     report = {}
@@ -791,11 +814,11 @@ def phase_card_vs_cpu(torch):
                 2048, nx=36, ny=19, nz=8,
                 extra_args=("SORT_DT", "900", "TPU_FAST", fast)
                 + (humid if q else ()), device=dev, dtype=dtype, q=q)
-            ctl = init_time_range(ctl, [0.0])
-            sim = Simulation(ctl, clim, met01, atm, cache,
-                             build_pack(ctl, met01))
+            sim = Simulation(ctl, atm, clim, met=FixedMet(met01),
+                             cache=cache)
             sim.sort()
-            sim.run([ctl.dt_mod * (i + 1) for i in range(10)])
+            sim.run(write_output=False,
+                    ts=[ctl.dt_mod * (i + 1) for i in range(10)])
             out[dev] = sim
         a, b = out["cuda"], out["cpu"]
         if a.cache.rng_ctr != b.cache.rng_ctr or a.nsorts != b.nsorts:
@@ -831,10 +854,380 @@ def phase_card_vs_cpu(torch):
                                     "paths": report}}))
 
 
+# ----------------------------------------------------- run_trac from files
+
+#: the trac path's clock: met snapshots at 0, 3600 and 7200 s (file names
+#: carry the hour), the run from T_TRAC_START over one met swap (the step at
+#: 3780 s is the first past the second snapshot) to its stop; both sorts of
+#: SORT_DT 1800 fall on the first step and on the step at 3600 s
+DT_MET = 3600.0
+T_TRAC_START = 1800.0
+T_TRAC_STOP = 4500.0
+
+
+def phase_trac_path(torch, n):
+    """``tools.trac`` from files on the card at full size, float32 state,
+    the fused path, across one met swap."""
+    import numpy as np
+
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch import sim as simmod
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.io import atm_io
+    from mptrac_tpu_torch.ops import _cuda
+    from mptrac_tpu_torch.tools import trac
+
+    tmp = tempfile.mkdtemp(prefix="mptrac_trac_")
+    try:
+        # the particle file in and out (6 float64 columns each) and the
+        # met files must fit the temporary space
+        per_parcel = 2 * 6 * 8
+        free = shutil.disk_usage(tmp).free
+        fit = int((0.9 * free - 2e9) // per_parcel) // (1 << 21) * (1 << 21)
+        n_run = min(n, fit)
+        if n_run < (1 << 21) and n_run < n:
+            raise RuntimeError(f"trac path: {free} bytes of temporary space "
+                               "hold no particle file")
+        t0 = time.time()
+        dirlist = flagship.write_case(
+            tmp, n_run, GRID, T_TRAC_START, T_TRAC_STOP, int(SORT_DT),
+            DT_MET, ("TPU_FAST", "2"))
+        setup_s = time.time() - t0
+        sizes = {f: os.path.getsize(os.path.join(tmp, f))
+                 for f in sorted(os.listdir(tmp))}
+        say(f"[trac] {n_run} parcels"
+            + (f" (cut from {n}: {free} bytes free)" if n_run < n else "")
+            + f"; files written in {setup_s:.1f} s: " + ", ".join(
+                f"{k} {v / 1e6:.1f} MB" for k, v in sizes.items()))
+
+        # measurement only: CUDA events around every step of the loop and
+        # every table build; the run itself is the tool's
+        steps, builds, holder = [], [], {}
+        advance, build_pack = simmod.Simulation.advance, simmod.build_pack
+
+        def timed_advance(self, t, write_output=True):
+            holder["sim"] = self
+            reads = len(self.met.reads)
+            sorts = self.nsorts
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            advance(self, t, write_output)
+            e1.record()
+            steps.append(dict(t=t, e0=e0, e1=e1,
+                              met_files=len(self.met.reads) - reads,
+                              sorted=self.nsorts - sorts,
+                              output=t == self.ctl.t_stop))
+
+        def timed_build_pack(ctl, met01):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = build_pack(ctl, met01)
+            e1.record()
+            builds.append((e0, e1))
+            return out
+
+        simmod.Simulation.advance = timed_advance
+        simmod.build_pack = timed_build_pack
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()              # the path starts here
+        t0 = time.time()
+        try:
+            rc = trac.main(["trac", dirlist, "trac.ctl", "atm_in.bin",
+                            "--device", "cuda", "--dtype", "float32"])
+        finally:
+            simmod.Simulation.advance = advance
+            simmod.build_pack = build_pack
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        counts = dict(_cuda.launch_counts)       # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise RuntimeError(f"trac path: tools.trac returned {rc}")
+
+        sim = holder["sim"]
+        ctl = sim.ctl
+        nadv = len(steps)
+        want_adv = int(round((T_TRAC_STOP - T_TRAC_START) / ctl.dt_mod)) + 1
+        if nadv != want_adv:
+            raise RuntimeError(f"trac path: {nadv} steps, expected "
+                               f"{want_adv}")
+        for st in steps:
+            st["ms"] = st.pop("e0").elapsed_time(st.pop("e1"))
+        swap = [st for st in steps[1:] if st["met_files"]]
+        if (len(sim.met.reads) != 3 or len(swap) != 1
+                or tuple(sim.met.pair.time) != (DT_MET, 2 * DT_MET)):
+            raise RuntimeError(
+                f"trac path: the run did not cross one met swap (files "
+                f"{[r['file'] for r in sim.met.reads]}, pair "
+                f"{sim.met.pair.time})")
+        if sim.nsorts != 2 or counts["permute_cols"] != 2:
+            raise RuntimeError(f"trac path: {sim.nsorts} sorts, K3 launches "
+                               f"{counts['permute_cols']}, expected 2")
+        if counts["rk_fused_advect"] != nadv or counts["sfc_interp"] < nadv:
+            raise RuntimeError(
+                f"trac path: K1 launches {counts['rk_fused_advect']}, K2 "
+                f"{counts['sfc_interp']} in {nadv} steps")
+        if len(builds) != 2:
+            raise RuntimeError(f"trac path: {len(builds)} table builds, "
+                               "expected one per met pair (2)")
+        # steps with nothing but the timestep: no file read, no sort, no
+        # particle output
+        plain = [st["ms"] for st in steps[1:]
+                 if not (st["met_files"] or st["sorted"] or st["output"])]
+
+        # the output: one binary particle file at the stop time
+        outs = sorted(f for f in os.listdir(tmp)
+                      if f.startswith("atm_") and f != "atm_in.bin")
+        if outs != ["atm_2000_01_01_01_15_00.bin"]:
+            raise RuntimeError(f"trac path: output files {outs}")
+        back = atm_io.read_atm(os.path.join(tmp, outs[0]),
+                               read_ctl(os.path.join(tmp, "trac.ctl")),
+                               device="cpu")
+        if back.np != n_run:
+            raise RuntimeError(f"trac path: {back.np} parcels read back, "
+                               f"{n_run} written")
+        for name, x in (("lon", back.lon), ("lat", back.lat), ("p", back.p),
+                        ("t", back.q["t"]), ("m", back.q["m"])):
+            if not bool(torch.isfinite(x).all()):
+                raise RuntimeError(f"trac path: non-finite {name} in the "
+                                   "output file")
+        if not (float(back.lon.min()) >= -180.0
+                and float(back.lon.max()) <= 180.0
+                and float(back.lat.abs().max()) <= 90.0
+                and float(back.p.min()) > 0.0):
+            raise RuntimeError("trac path: positions out of range")
+        if not float((back.time - T_TRAC_STOP).abs().max()) == 0.0:
+            raise RuntimeError("trac path: parcel times did not reach the "
+                               "stop time")
+        # the first step has dt = 0; every later one decays the mass
+        want_m = math.exp(-ctl.dt_mod / ctl.tdec_trop) ** (nadv - 1)
+        m_err = float((back.q["m"] / want_m - 1.0).abs().max())
+        t_err = float((back.q["t"] - 280.0).abs().max())
+        if not (m_err < 1e-5 and t_err < 1e-2):
+            raise RuntimeError(f"trac path: mass off by {m_err:.2e} rel., "
+                               f"T by {t_err:.2e} K")
+        same = bool(torch.equal(back.lon.to(torch.float32),
+                                sim.atm.lon.cpu()))
+        if not same:
+            raise RuntimeError("trac path: the output file does not hold "
+                               "the final state")
+        del back
+        timers = sim.timers.as_dict()
+        sim.timers.report(log=lambda line: say("[trac] " + line))
+        say(json.dumps({"trac_path": {
+            "n_parcels": n_run, "n_parcels_asked": n, "grid": list(GRID),
+            "steps": nadv, "run_s": run_s, "files_written_s": setup_s,
+            "met_files": sim.met.reads,
+            "read_atm_s": timers["READ_ATM"]["total"],
+            "write_atm_s": timers["WRITE_OUTPUT"]["max"],
+            "ms_per_step": float(np.mean(plain)),
+            "ms_per_step_min_max": [min(plain), max(plain)],
+            "ms_step_at_swap": swap[0]["ms"],
+            "ms_first_step": steps[0]["ms"],
+            "ms_last_step_with_output": steps[-1]["ms"],
+            "ms_steps": [round(st["ms"], 3) for st in steps],
+            "step_tags": [("first " if i == 0 else "")
+                          + ("swap " if st["met_files"] and i else "")
+                          + ("sort " if st["sorted"] else "")
+                          + ("output" if st["output"] else "")
+                          for i, st in enumerate(steps)],
+            "pack_rebuild_ms": [a.elapsed_time(b) for a, b in builds],
+            "resorts": sim.nsorts,
+            "peak_memory_allocated_bytes": peak, "launches": counts,
+            "mass_rel_err": m_err, "timers": timers}}))
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_trac_vs_cpu(torch):
+    """``run_trac`` from files at the tests' size on the card and on the
+    CPU: 10 steps across a met swap, float32 on the fused path and float64
+    on the exact path, held to the tolerances of the card-against-CPU
+    phase."""
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.io import atm_io
+    from mptrac_tpu_torch.sim import run_trac
+
+    names = ("lon", "lat", "p", "t", "m")
+    tols = {"float32": {k: TOLS_F32[k] for k in names},
+            "float64": {k: TOLS_F64[k] for k in names}}
+    t_start, t_stop = DT_MET - 5 * 180.0, DT_MET + 5 * 180.0
+    report = {}
+    for mode, fast in (("float32", "2"), ("float64", "0")):
+        tmp = tempfile.mkdtemp(prefix="mptrac_trac_")
+        try:
+            flagship.write_case(tmp, 2048, (36, 19, 8), t_start, t_stop,
+                                900, DT_MET, ("TPU_FAST", fast))
+            ctl = read_ctl(os.path.join(tmp, "trac.ctl"))
+            out = {}
+            for dev in ("cuda", "cpu"):
+                sim = run_trac(tmp, "trac.ctl", "atm_in.bin",
+                               ("ATM_BASENAME", "atm_" + dev), device=dev,
+                               dtype=getattr(torch, mode))
+                if (len(sim.met.reads) != 3 or sim.nsorts != 3
+                        or sim.atm.lon.dtype != getattr(torch, mode)):
+                    raise RuntimeError(
+                        f"trac vs CPU ({mode}, {dev}): {len(sim.met.reads)} "
+                        f"met files, {sim.nsorts} sorts, state "
+                        f"{sim.atm.lon.dtype}")
+                out[dev] = atm_io.read_atm(
+                    os.path.join(tmp, f"atm_{dev}_2000_01_01_01_15_00.bin"),
+                    ctl, device="cpu")
+            a, b = out["cuda"], out["cpu"]
+            errs = {}
+            for name, x, y in (("lon", a.lon, b.lon), ("lat", a.lat, b.lat),
+                               ("p", a.p, b.p), ("t", a.q["t"], b.q["t"]),
+                               ("m", a.q["m"], b.q["m"])):
+                errs[name] = float((x - y).abs().max())
+                if not errs[name] <= tols[mode][name]:
+                    raise RuntimeError(
+                        f"trac vs CPU ({mode}): {name} differs by "
+                        f"{errs[name]:.3e} > {tols[mode][name]:.1e}")
+            if float((a.time - t_stop).abs().max()) != 0.0:
+                raise RuntimeError(f"trac vs CPU ({mode}): parcel times did "
+                                   "not reach the stop time")
+            report[mode] = {"tpu_fast": int(fast), "max_abs_err": errs,
+                            "tolerance": tols[mode]}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    say(json.dumps({"trac_vs_cpu": {"steps": 10, "n_parcels": 2048,
+                                    "grid": [36, 19, 8], "modes": report}}))
+
+
+# ------------------------------------------------------------- the probes
+
+PROBE_N = 2_000_000
+
+
+def phase_probes(torch, n_large):
+    """P1-P3: driven through ``perf.probe``'s entry point (the counts
+    zeroed before, read after), then each against its plain version on
+    every element and timed, at the probe's own n and at ``n_large``."""
+    from mptrac_tpu_torch.ops import _cuda
+    from mptrac_tpu_torch.perf import probe
+
+    ncell = GRID[0] * GRID[1] * GRID[2]
+    _cuda.reset_launch_counts()                  # the probes' path starts
+    t0 = time.time()
+    rc = probe.main(["lane", "grid", "small", "--n", str(PROBE_N),
+                     "--ncell", str(ncell), "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts = dict(_cuda.launch_counts)           # ... and ends here
+    if rc != 0:
+        raise RuntimeError(f"perf.probe returned {rc}")
+    for name in ("probe_lane", "probe_grid", "probe_small"):
+        if counts[name] < 1:
+            raise RuntimeError(f"perf.probe did not launch {name}")
+    say(json.dumps({"probe_path": {"n": PROBE_N, "ncell": ncell,
+                                   "seconds": time.time() - t0,
+                                   "launches": counts}}))
+
+    def lane(n):
+        packT, base, w = probe.make_data(n, ncell, device="cuda")
+        got = probe.probe_lane(packT, base, w)
+        t1 = time.time()
+        err = 0.0
+        for s in range(0, n, PLAIN_CHUNK):
+            e = min(s + PLAIN_CHUNK, n)
+            exp = probe.probe_lane_plain(packT, base[s:e], w[:, s:e])
+            err = max(err, max_err(got[:, s:e], exp, torch))
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.time() - t1)
+        if not (float(got[4].min()) == 1.0
+                and float(got[5:8].abs().max()) == 0.0):
+            raise RuntimeError("P1: served flag or padding rows are off")
+        del got, exp
+        #: the same float32 operations in the same order without
+        #: contraction on both sides (the lane kernels measured 0.0)
+        tol = 0.0
+        if not err <= tol:
+            raise RuntimeError(f"P1 (n {n}): max abs err {err:.3e} > {tol}")
+        ms = time_ms(lambda: probe.probe_lane(packT, base, w), torch)
+        # 4 B index + 16 B weights + 32 B results a parcel, and each
+        # table column that a parcel of this run points at, once
+        cells = int(torch.unique(base).numel())
+        nbytes = n * 52 + cells * probe.LANES * 4
+        b, by, b_bytes, b_ops = bound_ms(nbytes, n * 180)
+        return dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b, bound_by=by, bound_bytes_ms=b_bytes,
+                    bound_operations_ms=b_ops, library_ms=None,
+                    cells_touched=cells, tolerance=tol,
+                    table_bytes=packT.numel() * 4)
+
+    def grid(n):
+        out = {}
+        for G in probe.GRID_GROUPS:
+            cp = G * 128
+            nchunk = -(-n // cp)
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            x = torch.rand((8, nchunk * cp), device="cuda", generator=gen)
+            got = probe.probe_grid(x, G)
+            exact = bool(torch.equal(got, probe.probe_grid_plain(x, G)))
+            del got
+            if not exact:
+                raise RuntimeError(f"P2 (n {n}, G {G}): differs from x * 2")
+            ms = time_ms(lambda: probe.probe_grid(x, G), torch)
+            plain_ms = time_ms(lambda: probe.probe_grid_plain(x, G), torch)
+            lib_ms = time_ms(lambda: x.mul(2.0), torch)
+            # every element read once and written once
+            b, by, _, _ = bound_ms(x.numel() * 8, x.numel())
+            out[G] = dict(n=n, G=G, blocks=nchunk, max_abs_err=0.0, ms=ms,
+                          us_per_block=1e3 * ms / nchunk, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=b, bound_by=by,
+                          tolerance=0.0)
+            del x
+        return out
+
+    def small(n):
+        tab, idx = probe.make_small_data(n, device="cuda")
+        got = probe.probe_small(tab, idx)
+        exact = bool(torch.equal(got, probe.probe_small_plain(tab, idx)))
+        del got
+        if not exact:
+            raise RuntimeError(f"P3 (n {n}): differs from tab[:, idx]")
+        idx64 = idx.to(torch.int64)
+        ms = time_ms(lambda: probe.probe_small(tab, idx), torch)
+        plain_ms = time_ms(lambda: probe.probe_small_plain(tab, idx), torch)
+        lib_ms = time_ms(lambda: torch.index_select(tab, 1, idx64), torch)
+        tab_t = tab.T.contiguous()
+        rows_ms = time_ms(lambda: tab_t[idx64], torch)
+        # 4 B index read, 8 results of 4 B written, the table once
+        b, by, _, _ = bound_ms(n * 36 + tab.numel() * 4, 0)
+        return dict(n=n, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, library_ms_row_gather=rows_ms,
+                    bound_ms=b, bound_by=by, tolerance=0.0)
+
+    kernels = []
+    for name, fn, line in (("probe_lane", lane, 203),
+                           ("probe_grid", grid, 241),
+                           ("probe_small", small, 276)):
+        at = {n: fn(n) for n in (PROBE_N, n_large)}
+        torch.cuda.empty_cache()
+        if name == "probe_grid":
+            # the entry's own numbers: the middle block size; all three
+            # block sizes at both n beside them
+            main = dict(at[PROBE_N][32])
+            more = {"by_G": {str(n): {str(G): v for G, v in at[n].items()}
+                             for n in at}}
+        else:
+            main = dict(at[PROBE_N])
+            more = {"at_n_large": at[n_large]}
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="mptrac_tpu_torch/csrc/probe.cu",
+            replaces=f"perf/probe.py:{line}", launches=counts[name],
+            **main, **more))
+    return kernels
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--np", type=int, default=N_FLAGSHIP,
-                    help="parcels of both paths (debugging only)")
+                    help="parcels of every path (debugging only)")
     ap.add_argument("--steps", type=int, default=TIMED_STEPS,
                     help="timed steps of both paths (debugging only)")
     ap.add_argument("--profile", action="store_true",
@@ -861,6 +1254,10 @@ def main():
     del sim
     torch.cuda.empty_cache()
     phase_card_vs_cpu(torch)
+    phase_trac_path(torch, args.np)
+    torch.cuda.empty_cache()
+    phase_trac_vs_cpu(torch)
+    kernels += phase_probes(torch, args.np)
     say(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -207,15 +207,18 @@ class CtlFile:
     def unknown_file_keys(self):
         """File keys that no scan ever consumed (typo detection).
 
-        Array keys match their scanned ``name[idx]``/``name[*]`` forms;
-        a bare scan of ``name`` also covers indexed file spellings."""
+        A key counts as consumed only in a spelling that ``scan`` looks
+        up: ``name`` and ``name[idx]`` when exactly that was scanned,
+        ``name[*]`` when any element of the array was.  An index that no
+        scan reached (``QNT_NAME[7]`` with ``NQ = 3``) is reported; the
+        JAX package's check lets it pass because other elements of the
+        array were scanned."""
+        scanned_arrays = {u.split("[", 1)[0] for u in self.used if "[" in u}
         out = []
         for k in self._file:
             if k in self.used:
                 continue
-            base = k.split("[", 1)[0]
-            if base in self.used or f"{base}[*]" in self.used or any(
-                    u.split("[", 1)[0] == base for u in self.used):
+            if k.endswith("[*]") and k[:-3] in scanned_arrays:
                 continue
             out.append(k)
         return out

@@ -10,9 +10,12 @@ Dict layouts (the field names of the JAX dataclasses):
 
 * atm:   time, p, lon, lat, q (dict name -> array), np
 * cache: uvwp, dt, rng_ctr, iso_var, iso_ps, iso_ts, iso_n, served_min
-* met01: time, lon, lat, p, hybrid, fields2d, fields3d (dicts), and the
-  static coord_type, npl_ml, reg_lon, reg_lat, lon_periodic
-* clim:  tropo_time, tropo_lat, tropo
+* met (a snapshot or a stacked pair): time, lon, lat, p, hybrid,
+  fields2d, fields3d (dicts), and the static coord_type, npl_ml,
+  reg_lon, reg_lat, lon_periodic; ``time`` becomes a host float (pair)
+* clim:  tropo_time, tropo_lat, tropo, photo_p, photo_sza, photo_o3c,
+  photo (dict), zm (dict name -> dict time, lat, p, vmr), ts (dict
+  name -> dict time, vmr)
 """
 
 from __future__ import annotations
@@ -20,11 +23,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mptrac_tpu_torch.types import Atm, Cache, Clim, Met, resolve_device
+from mptrac_tpu_torch.types import (Atm, Cache, Clim, ClimTs, ClimZm, Met,
+                                    resolve_device)
 
 
 def _t(a, dev):
     return torch.from_numpy(np.array(a)).to(dev)     # (a copy)
+
+
+def _host_time(t):
+    """Met.time as the port keeps it: a host float, or a pair of them."""
+    t = np.asarray(t, np.float64)
+    return float(t) if t.ndim == 0 else tuple(float(x) for x in t)
+
+
+def _zm(d, dev):
+    return ClimZm(time=_t(d["time"], dev), lat=_t(d["lat"], dev),
+                  p=_t(d["p"], dev), vmr=_t(d["vmr"], dev))
 
 
 def from_reference(atm=None, cache=None, met01=None, clim=None,
@@ -47,7 +62,7 @@ def from_reference(atm=None, cache=None, met01=None, clim=None,
         served_min=(None if cache.get("served_min") is None
                     else float(cache["served_min"]))))
     out.append(None if met01 is None else Met(
-        time=_t(met01["time"], dev), lon=_t(met01["lon"], dev),
+        time=_host_time(met01["time"]), lon=_t(met01["lon"], dev),
         lat=_t(met01["lat"], dev), p=_t(met01["p"], dev),
         hybrid=_t(met01["hybrid"], dev),
         fields2d={k: _t(v, dev) for k, v in met01["fields2d"].items()},
@@ -59,7 +74,14 @@ def from_reference(atm=None, cache=None, met01=None, clim=None,
     out.append(None if clim is None else Clim(
         tropo_time=_t(clim["tropo_time"], dev),
         tropo_lat=_t(clim["tropo_lat"], dev),
-        tropo=_t(clim["tropo"], dev)))
+        tropo=_t(clim["tropo"], dev),
+        photo_p=_t(clim["photo_p"], dev),
+        photo_sza=_t(clim["photo_sza"], dev),
+        photo_o3c=_t(clim["photo_o3c"], dev),
+        photo={k: _t(v, dev) for k, v in clim["photo"].items()},
+        zm={k: _zm(v, dev) for k, v in clim["zm"].items()},
+        ts={k: ClimTs(time=_t(v["time"], dev), vmr=_t(v["vmr"], dev))
+            for k, v in clim["ts"].items()}))
     return tuple(out)
 
 

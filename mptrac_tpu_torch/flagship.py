@@ -71,3 +71,58 @@ def make_setup(n_parcels: int, nx: int = 90, ny: int = 46, nz: int = 16,
     cache = Cache.zeros(n_parcels, dtype=dtype, iso_npmax=1, device=dev)
     met01, clim = astype_state(met=met01, clim=clim, dtype=dtype)
     return ctl, clim, met01, atm, cache
+
+
+def write_case(dirname: str, n_parcels: int, grid: Sequence[int],
+               t_start: float, t_stop: float, sort_dt: float,
+               dt_met: float = 3600.0, extra_ctl: Sequence[str] = ()) -> str:
+    """The flagship as a working directory for ``tools.trac``: three
+    netCDF met files of the solid-body wind ``dt_met`` apart from time 0
+    (``dt_met`` a whole number of hours: file names carry the hour),
+    ``atm_in.bin`` with the flagship's parcel positions at ``t_start``
+    (binary, ``ATM_TYPE 1``), ``trac.ctl`` with the flagship's control
+    parameters, binary particle output at ``t_stop`` only, and
+    ``dirlist``.  ``extra_ctl`` are further ``KEY VALUE`` control
+    parameters.  Everything is made on the host.  Returns the dirlist's
+    path."""
+    import os
+
+    from mptrac_tpu_torch.io import atm_io
+    from mptrac_tpu_torch.met.read_nc import get_met_filename
+    from mptrac_tpu_torch.met.write_nc import write_met_nc
+
+    pairs = dict(zip(FLAGSHIP_ARGS[0::2], FLAGSHIP_ARGS[1::2]))
+    pairs.update({
+        "METBASE": os.path.join(dirname, "met"), "DT_MET": str(dt_met),
+        "SORT_DT": str(sort_dt), "ATM_TYPE": "1", "ATM_TYPE_OUT": "1",
+        "ATM_BASENAME": "atm", "ATM_DT_OUT": "864000",
+        "T_STOP": str(t_stop)})
+    pairs.update(dict(zip(extra_ctl[0::2], extra_ctl[1::2])))
+    ctl_file = os.path.join(dirname, "trac.ctl")
+    with open(ctl_file, "w") as f:
+        for k, v in pairs.items():
+            f.write(f"{k} = {v}\n")
+    ctl = read_ctl(ctl_file)
+    nx, ny, nz = grid
+    for k in range(3):
+        met = make_wind_met(t0=k * dt_met, nx=nx, ny=ny, nz=nz, alpha=30.0,
+                            device="cpu")
+        write_met_nc(get_met_filename(ctl, k * dt_met, 1), met,
+                     drop_wrap_column=True)
+        del met
+    rng = np.random.default_rng(0)
+
+    def draw(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, n_parcels))
+
+    lon, lat, p = draw(-180, 180), draw(-60, 60), draw(200, 900)
+    f64 = torch.float64
+    atm = Atm(time=torch.full((n_parcels,), float(t_start), dtype=f64), p=p,
+              lon=lon, lat=lat,
+              q={"t": torch.zeros(n_parcels, dtype=f64),
+                 "m": torch.ones(n_parcels, dtype=f64)}, np=n_parcels)
+    atm_io.write_atm(os.path.join(dirname, "atm_in.bin"), ctl, atm, t_start)
+    dirlist = os.path.join(dirname, "dirlist")
+    with open(dirlist, "w") as f:
+        f.write(dirname + "\n")
+    return dirlist

@@ -101,7 +101,7 @@ def make_wind_met(t0: float = 0.0, nx: int = 360, ny: int = 181,
         return torch.from_numpy(np.asarray(a, np.float64)).to(dev)
 
     return Met(
-        time=torch.tensor(float(t0), dtype=torch.float64, device=dev),
+        time=float(t0),
         lon=axis(lon), lat=axis(lat), p=axis(p),
         hybrid=torch.zeros(nz, dtype=torch.float64, device=dev),
         fields2d=f2, fields3d=f3, coord_type=0, npl_ml=0,

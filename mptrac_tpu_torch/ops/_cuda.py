@@ -28,7 +28,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "mptrac_tpu_torch")
 #: code that the interpolation kernels share
 SOURCES = ("rk_fused.cu", "sfc_interp.cu", "permute_cols.cu",
            "uvwt_interp.cu", "meso_sigma.cu", "lane_interp.cu",
-           "uvw_rows.cu")
+           "uvw_rows.cu", "probe.cu")
 
 #: -fmad=false: no multiply-add contraction, so each kernel rounds where
 #: its plain PyTorch version rounds (the kernels are bound by bytes, the
@@ -41,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: where it launches its kernel and nowhere else)
 launch_counts = {"rk_fused_advect": 0, "sfc_interp": 0, "permute_cols": 0,
                  "uvwt_interp": 0, "meso_sigma": 0, "lane_interp_uvwt": 0,
-                 "lane_meso_sigma": 0, "uvw_rows_interp": 0}
+                 "lane_meso_sigma": 0, "uvw_rows_interp": 0,
+                 "probe_lane": 0, "probe_grid": 0, "probe_small": 0}
 
 
 def reset_launch_counts() -> None:
@@ -153,6 +154,12 @@ def load() -> ctypes.CDLL:
     lib.lane_meso_sigma.argtypes = [vp] * 3 + [i64, vp]
     lib.uvw_rows_interp.restype = i32
     lib.uvw_rows_interp.argtypes = [vp] * 4 + [i64, i32, i32, i64, vp]
+    lib.probe_lane.restype = i32
+    lib.probe_lane.argtypes = [vp] * 4 + [i64, i64, vp]
+    lib.probe_grid.restype = i32
+    lib.probe_grid.argtypes = [vp, vp, i64, i32, vp]
+    lib.probe_small.restype = i32
+    lib.probe_small.argtypes = [vp] * 3 + [i64, vp]
     return lib
 
 

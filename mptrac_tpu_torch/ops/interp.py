@@ -45,7 +45,10 @@ def locate_irr(xx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     axis, ``searchsorted(-xx, -x, right=False)`` (negation is exact, so
     ties fall on the same side).  Both are evaluated and the direction
     selects on the device, so no value is read back to the host; the
-    search on the wrongly ordered axis is discarded.
+    search on the wrongly ordered axis is discarded.  A NaN coordinate
+    compares false with every node, so the count is 0 and the cell the
+    first; the search would sort it past the last node, hence the
+    explicit select.
     """
     n = xx.shape[0]
     dt = torch.promote_types(xx.dtype, x.dtype)
@@ -54,6 +57,7 @@ def locate_irr(xx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     cnt_le = torch.searchsorted(xx, xq, right=True, out_int32=True)
     cnt_gt = torch.searchsorted(-xx, -xq, right=False, out_int32=True)
     cnt = torch.where(xx[1] > xx[0], cnt_le, cnt_gt)
+    cnt = torch.where(torch.isnan(xq), 0, cnt)
     return torch.clamp(cnt - 1, 0, n - 2)
 
 
@@ -184,7 +188,7 @@ def time_weight(met01: Met, ts) -> torch.Tensor:
     intpol_met_time_3d, c:3130).  The difference is taken in the time
     dtype (float64, jsec values need it) and the ratio is cast to the
     grid-axis dtype so that fp32 mode stays float32 downstream."""
-    t0, t1 = met01.time[0], met01.time[1]
+    t0, t1 = float(met01.time[0]), float(met01.time[1])
     return ((t1 - ts) / (t1 - t0)).to(met01.lon.dtype)
 
 

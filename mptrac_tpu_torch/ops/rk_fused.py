@@ -83,7 +83,7 @@ def build_cell_pack(met01: Met) -> CellPack:
     lon_np = lons.detach().cpu().numpy()
     lat_np = lats.detach().cpu().numpy().astype(f32)
     p_np = ps.detach().cpu().numpy().astype(f32)
-    times = met01.time.detach().cpu().numpy().astype(np.float64)
+    times = np.asarray(met01.time, np.float64)
     return CellPack(
         table=table,
         lat_axis=lats.to(torch.float32).contiguous(),

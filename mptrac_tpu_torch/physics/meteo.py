@@ -1,8 +1,8 @@
 """Meteo sampling to particle attributes (reference module_meteo,
 mptrac.c:5054-5161): interpolates met and derived quantities onto each
 parcel for every registered quantity.  Counterpart of the JAX package's
-``physics/meteo.py``; the climatological quantities wait for the rest
-of ``climatology``.
+``physics/meteo.py``.  A climatological quantity whose table the
+climatology does not hold is left as it is, as there.
 
 Runs for ALL parcels regardless of dt (PARTICLE_LOOP check_dt=0)."""
 
@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from mptrac_tpu_torch import climatology as cl
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.constants import CPD, EPS, G0, H0, LV, RA
 from mptrac_tpu_torch.ops import interp, thermo
+from mptrac_tpu_torch.physics.chem import clim_oh
 from mptrac_tpu_torch.ops.slab_interp import (SFC_FIELDS, sfc_from_loc,
                                               uvwt_from_loc)
 from mptrac_tpu_torch.types import Atm, Cache, Clim, Met
@@ -32,11 +34,8 @@ _Q3D = {"zg": "z", "t": "t", "u": "u", "v": "v", "w": "w", "pv": "pv",
 
 #: quantities derived from t, u, v, w and h2o at the parcel
 _DERIV3 = ("rho", "vh", "vz", "psat", "psice", "pw", "sh", "rh",
-           "rhice", "theta", "tvirt", "lapse", "tdew", "tice", "zeta_d")
-
-#: quantities of the JAX module_meteo that need climatologies which are
-#: not ported yet
-_UNPORTED = ("hno3", "oh", "h2o2", "ho2", "o1d", "tnat", "tsts")
+           "rhice", "theta", "tvirt", "lapse", "tdew", "tice", "tnat",
+           "tsts", "zeta_d")
 
 
 def module_meteo(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
@@ -50,11 +49,6 @@ def module_meteo(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
     names = set(ctl.qnt_name)
     if not names:
         return atm
-    bad = sorted(names & set(_UNPORTED))
-    if bad:
-        raise NotImplementedError(
-            f"module_meteo: climatological quantities {bad} are not "
-            "ported to mptrac_tpu_torch yet")
     q = dict(atm.q)
     pre3d = pre3d or {}
     fp32 = met01.lon.dtype == torch.float32
@@ -145,6 +139,21 @@ def module_meteo(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
         q["tdew"] = thermo.tdew(p, h2o)
     if "tice" in names:
         q["tice"] = thermo.tice(p, h2o)
+
+    lat_ref = (atm.lat if ctl.met_coord_type == 0
+               else torch.full_like(atm.lat, ctl.met_utm_ref_lat))
+    if "hno3" in names and "hno3" in clim.zm:
+        q["hno3"] = cl.clim_zm(clim.zm["hno3"], atm.time, lat_ref, p)
+    if "oh" in names and "oh" in clim.zm:
+        q["oh"] = clim_oh(ctl, clim, atm.time, atm.lon, atm.lat, p)
+    for qname in ("h2o2", "ho2", "o1d"):
+        if qname in names and qname in clim.zm:
+            q[qname] = cl.clim_zm(clim.zm[qname], atm.time, lat_ref, p)
+    if "tnat" in names and "hno3" in clim.zm:
+        q["tnat"] = thermo.nat_temperature(
+            p, h2o, cl.clim_zm(clim.zm["hno3"], atm.time, atm.lat, p))
+    if "tsts" in names:
+        q["tsts"] = 0.5 * (q["tice"] + q["tnat"])
     return atm.replace(q=q)
 
 

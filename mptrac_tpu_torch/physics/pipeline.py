@@ -5,8 +5,8 @@ reference ``mptrac_run_timestep``, mptrac.c:7545-7694): the fixed
 module order with the enables resolved from Ctl on the host.  Eager:
 one call runs one step.  Ported so far: timesteps, position, advection
 on pressure levels (fused, unfused through the kernels, or exact),
-turbulent and mesoscale diffusion, meteo sampling (all but the
-climatological quantities) and decay.  The pack decides the path: with
+turbulent and mesoscale diffusion, meteo sampling, decay, and the
+first-step initialisation (``init_modules``).  The pack decides the path: with
 ``pack.cell`` the fused RK kernel, with ``pack.packT`` the unfused
 kernels, without a pack (or with a float64 state) the exact
 interpolation.  A gate that would reach a module that is not ported
@@ -162,4 +162,16 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
     if ctl.dry_depo_vdep > 0:
         _unported("module_dry_depo")
 
+    return atm, cache
+
+
+def init_modules(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache):
+    """First-step module initialization (reference c:7556-7567)."""
+    if 1 <= ctl.isosurf <= 4:
+        _unported("module_isosurf_init")
+    # module_advect_init does nothing on pressure levels
+    if ctl.advect_vert_coord == 1 and "zeta" in atm.q:
+        _unported("module_advect_init (interp_4d_zeta)")
+    from mptrac_tpu_torch.physics.chem import module_chem_init
+    atm = module_chem_init(ctl, clim, met01, atm)
     return atm, cache

@@ -45,9 +45,10 @@ def init_time_range(ctl: Ctl, atm_time) -> Ctl:
     """Set/round the simulation time range from the particle times
     (reference module_timesteps_init, c:5858).  Host-side; returns an
     updated Ctl."""
-    if isinstance(atm_time, torch.Tensor):
-        atm_time = atm_time.detach().cpu().numpy()
-    times = np.asarray(atm_time)
+    # (a tensor is reduced where it lies: two numbers cross to the host,
+    # not the column)
+    times = (atm_time.detach() if isinstance(atm_time, torch.Tensor)
+             else np.asarray(atm_time))
     explicit = ctl.t_start > -1e99
     if ctl.direction == 1:
         t_start = ctl.t_start if explicit else float(times.min())

@@ -1,23 +1,46 @@
-"""Simulation run loop.
+"""High-level simulation run loop.
 
-Counterpart of the step loop of the JAX package's ``sim.py``
-(``Simulation.advance`` and the sort policy, :201-235, :286-303; the
-reference loop is trac.c:122-160): sort when due, run the timestep,
-advance the model time.  The met pair and its gather tables are handed
-in (``build_pack`` makes the tables that ``TPU_FAST`` asks for);
-file-backed met buffering, outputs and checkpoints are not ported yet.
+Counterpart of the JAX package's ``sim.py`` (the reference ``trac`` main
+loop, trac.c:95-185, and mptrac_get_met c:6187, mptrac_init c:6312,
+mptrac_run_timestep c:7545, mptrac_write_output c:7919): ``MetBuffer``
+keeps the two met snapshots that bracket the model time, ``Simulation``
+runs the time loop (met buffering, optional sort, the timestep, output),
+``run_trac`` runs one working directory.
+
+The time loop runs on the host and dispatches every step eagerly; it
+reads nothing back from the device (``Met.time``, ``Atm.np`` and
+``Cache.served_min`` are host values).  What the JAX package's loop does with
+``lax.scan`` (batching homogeneous steps into one dispatch) has no
+counterpart: ``run(scan=...)`` accepts the argument and steps one by
+one.  Checkpoints are not ported.
+
+The compute mode is explicit: ``dtype=torch.float64`` (the default and
+the reference-parity mode) or ``torch.float32``, the mode in which
+``TPU_FAST 1`` and ``2`` run the CUDA kernels.  In float32 mode the
+particle state and every met pair's axes are cast once (the particle
+time stays float64), which is the JAX package's ``astype_state``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional
+import os
+from typing import Dict, Iterable, List, Optional
 
-from mptrac_tpu_torch.config import Ctl
+import torch
+
+from mptrac_tpu_torch.climatology import read_clim
+from mptrac_tpu_torch.config import Ctl, read_ctl
+from mptrac_tpu_torch.io import atm_io
+from mptrac_tpu_torch.met.build import check_met_type, read_met
+from mptrac_tpu_torch.met.read_nc import get_met_filename
 from mptrac_tpu_torch.ops.fast_interp import MetPack, build_met_pack
 from mptrac_tpu_torch.ops.sort import module_sort
 from mptrac_tpu_torch.physics import pipeline
-from mptrac_tpu_torch.types import Atm, Cache, Clim, Met
+from mptrac_tpu_torch.physics.timesteps import init_time_range
+from mptrac_tpu_torch.types import (Atm, Cache, Clim, Met, astype_state,
+                                    resolve_device, stack_met)
+from mptrac_tpu_torch.utils.timers import Timers
 
 
 def build_pack(ctl: Ctl, met01: Met) -> Optional[MetPack]:
@@ -32,8 +55,122 @@ def build_pack(ctl: Ctl, met01: Met) -> Optional[MetPack]:
                           cell=ctl.tpu_fast >= 2 and ctl.sort_dt > 0)
 
 
+class FixedMet:
+    """A met source that yields one pair held in memory for every
+    model time (the synthetic flagship)."""
+
+    def __init__(self, met01: Met):
+        self.pair = met01
+
+    def swap_due(self, t: float) -> bool:
+        return False
+
+    def get(self, t: float) -> Met:
+        return self.pair
+
+
+class MetBuffer:
+    """Double-buffered met reader (reference mptrac_get_met, c:6187).
+
+    Keeps the stacked pair of the two snapshots that bracket the model
+    time on the device and re-reads one file per met interval crossing.
+    On a crossing the pair is updated in place: the snapshot that stays
+    moves to the other slot and the new one is copied in, so the device
+    holds one pair and, while a file is read, one snapshot more.
+    ``dtype`` is the compute mode that the pair's axes are cast to.
+    ``reads`` lists, for every file read, its name and the seconds of
+    reading, preprocessing and upload.
+    """
+
+    def __init__(self, ctl: Ctl, clim: Clim, device="cuda",
+                 dtype=torch.float64):
+        check_met_type(ctl)
+        self.ctl = ctl
+        self.clim = clim
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.pair: Optional[Met] = None
+        self.reads: List[Dict[str, object]] = []
+
+    def _read(self, filename: str) -> Met:
+        timings: Dict[str, float] = {}
+        met = read_met(filename, self.ctl, self.clim, device=self.device,
+                       timings=timings)
+        self.reads.append(dict(file=os.path.basename(filename), **timings))
+        return astype_state(met=met, dtype=self.dtype)
+
+    def swap_due(self, t: float) -> bool:
+        """Whether ``get(t)`` will read a file (so that the caller can
+        release what it derived from the old pair first)."""
+        return (self.pair is None or t > self.pair.time[1]
+                or t < self.pair.time[0])
+
+    def get(self, t: float) -> Met:
+        ctl = self.ctl
+        if self.pair is None:
+            # Initial read of both bracketing snapshots (c:6205-6218)
+            f0 = get_met_filename(
+                ctl, t + (-1 if ctl.direction == -1 else 0), -1)
+            f1 = get_met_filename(
+                ctl, t + (1 if ctl.direction == 1 else 0), 1)
+            met0 = self._read(f0)
+            met1 = met0 if f1 == f0 else self._read(f1)
+            self._check_grids(met0, met1)
+            self.pair = stack_met(met0, met1)
+        # Forward: advance when t passes met1 (c:6236-6248)
+        if t > self.pair.time[1]:
+            self._shift(self._read(get_met_filename(ctl, t, 1)), keep=1)
+        # Backward: advance when t passes met0 (c:6264-6276)
+        if t < self.pair.time[0]:
+            self._shift(self._read(get_met_filename(ctl, t, -1)), keep=0)
+        return self.pair
+
+    def _shift(self, new: Met, keep: int):
+        """Move snapshot ``keep`` of the pair to the other slot and put
+        ``new`` into its place.  The result is a new ``Met`` object over
+        the same tensors, so a consumer sees that the pair changed."""
+        old = self.pair
+        self._check_grids(_snapshot(old, keep), new)
+        for name in ("lon", "lat", "p", "hybrid"):
+            stacked = getattr(old, name)
+            stacked[1 - keep].copy_(stacked[keep])
+            stacked[keep].copy_(getattr(new, name))
+        for fields, new_fields in ((old.fields2d, new.fields2d),
+                                   (old.fields3d, new.fields3d)):
+            for k, stacked in fields.items():
+                stacked[1 - keep].copy_(stacked[keep])
+                stacked[keep].copy_(new_fields[k])
+        times = [old.time[keep], float(new.time)]
+        self.pair = old.replace(
+            time=tuple(times if keep == 1 else reversed(times)))
+
+    @staticmethod
+    def _check_grids(m0: Met, m1: Met):
+        if (m0.nx, m0.ny, m0.npl) != (m1.nx, m1.ny, m1.npl):
+            raise ValueError("Meteo grid dimensions do not match!")
+        if not bool(torch.allclose(m0.lon, m1.lon, rtol=0.0, atol=0.001)):
+            raise ValueError("Meteo grid longitudes do not match!")
+
+
+def _snapshot(pair: Met, k: int) -> Met:
+    """Snapshot ``k`` of a stacked pair (views, no copy)."""
+    return pair.replace(
+        time=pair.time[k], lon=pair.lon[k], lat=pair.lat[k], p=pair.p[k],
+        hybrid=pair.hybrid[k],
+        fields2d={n: v[k] for n, v in pair.fields2d.items()},
+        fields3d={n: v[k] for n, v in pair.fields3d.items()})
+
+
 class Simulation:
-    """Holds the state of one run and advances it step by step."""
+    """One model run: ctl + clim + atm + cache + a met source.
+
+    ``met`` is the met source, an object with ``get(t)`` and
+    ``swap_due(t)``: by default a ``MetBuffer`` over the files that
+    ``METBASE`` names; ``FixedMet(met01)`` runs on a pair held in
+    memory.  The device is the particle state's.  ``dtype`` is the
+    compute mode (see the module docstring; default: the mode ``atm``
+    is in).
+    """
 
     #: re-sort when the served fraction since the last sort dips below
     #: this.  Every parcel is served by this package's kernels, so
@@ -41,24 +178,62 @@ class Simulation:
     #: ``ctl.sort_dt``; the check keeps the loop's shape.
     SORT_SERVED_THRESH = 0.995
 
-    def __init__(self, ctl: Ctl, clim: Clim, met01: Met, atm: Atm,
-                 cache: Cache, pack: Optional[MetPack] = None):
-        self.ctl = ctl
-        self.clim = clim
-        self.met01 = met01
+    def __init__(self, ctl: Ctl, atm: Atm, clim: Optional[Clim] = None,
+                 dirname: str = ".", checkpoint_file: Optional[str] = None,
+                 checkpoint_dt: float = 0.0, *, met=None,
+                 cache: Optional[Cache] = None, dtype=None):
+        if checkpoint_file is not None:
+            raise NotImplementedError(
+                "checkpoint_file: checkpoint.save_checkpoint / "
+                "load_checkpoint are not ported to mptrac_tpu_torch yet")
+        device = atm.time.device
+        dtype = atm.lon.dtype if dtype is None else dtype
+        if clim is None:
+            clim = read_clim(ctl, device=device)
+        self.ctl = init_time_range(ctl, atm.time[:atm.np])
+        if atm.lon.dtype != dtype:
+            atm = astype_state(atm=atm, dtype=dtype)
         self.atm = atm
-        self.cache = cache
-        self.pack = pack
+        self.clim = (clim if dtype == torch.float64
+                     else astype_state(clim=clim, dtype=dtype))
+        self.cache = (cache if cache is not None else Cache.zeros(
+            atm.npmax, dtype, iso_npmax=None if 1 <= ctl.isosurf <= 4 else 1,
+            device=device))
+        self.met = met if met is not None else MetBuffer(
+            self.ctl, self.clim, device=device, dtype=dtype)
+        self.dirname = dirname
+        self.timers = Timers()
         self.nsorts = 0
+        self._first = True
+        self._output = None
+        self._pack: Optional[MetPack] = None
+        self._pack_src: Optional[Met] = None
+
+    @property
+    def pack(self) -> Optional[MetPack]:
+        """The gather tables of the current met pair (None before the
+        first step, after a release, and with ``TPU_FAST 0``)."""
+        return self._pack
+
+    def _get_pack(self, met01: Met) -> Optional[MetPack]:
+        """Gather tables, rebuilt once per met pair (TPU_FAST only)."""
+        if self._pack_src is not met01:
+            self._pack = build_pack(self.ctl, met01)
+            self._pack_src = met01
+        return self._pack
 
     def _sort_due(self) -> bool:
         # served_min is a host float: no device sync
         return (self.cache.served_min is not None
                 and self.cache.served_min < self.SORT_SERVED_THRESH)
 
-    def sort(self):
-        self.atm, self.cache = module_sort(self.met01, self.atm,
-                                           self.cache)
+    def sort(self, met01: Optional[Met] = None):
+        """Sort the particle state by met grid cell (on the pair of the
+        current start time when none is given)."""
+        if met01 is None:
+            met01 = self.met.get(self.ctl.t_start)
+        with self.timers.timer("MODULE_SORT", "PHYSICS"):
+            self.atm, self.cache = module_sort(met01, self.atm, self.cache)
         self.nsorts += 1
 
     def _flags(self, t: float) -> pipeline.StepFlags:
@@ -85,17 +260,75 @@ class Simulation:
                 t, ctl.t_stop)
             t += ctl.direction * ctl.dt_mod
 
-    def advance(self, t: float):
-        """One step of the run loop at model time ``t``: optional
-        sort, then the timestep (reference trac.c:122-160)."""
+    def advance(self, t: float, write_output: bool = True):
+        """One step of the run loop at model time ``t``: met
+        buffering, optional sort, the timestep, output (reference
+        trac.c:122-160)."""
+        if self.met.swap_due(t):
+            # release the old pair's tables before the new pair is read
+            self._pack = self._pack_src = None
+        with self.timers.timer("GET_MET", "INPUT"):
+            met01 = self.met.get(t)
+        if self._first:
+            self.atm, self.cache = pipeline.init_modules(
+                self.ctl, self.clim, met01, self.atm, self.cache)
+            self._first = False
         if self.ctl.sort_dt > 0 and (
                 math.fmod(t, self.ctl.sort_dt) == 0 or self._sort_due()):
-            self.sort()
-        self.atm, self.cache = pipeline.run_timestep(
-            self.ctl, self.clim, self.met01, self.atm, self.cache, t,
-            self._flags(t), self.pack)
+            self.sort(met01)
+        with self.timers.timer("RUN_TIMESTEP", "PHYSICS"):
+            self.atm, self.cache = pipeline.run_timestep(
+                self.ctl, self.clim, met01, self.atm, self.cache, t,
+                self._flags(t), self._get_pack(met01))
+        if write_output:
+            with self.timers.timer("WRITE_OUTPUT", "OUTPUT"):
+                self.write_output(t)
 
-    def run(self, ts: Optional[Iterable[float]] = None):
-        """Advance over ``ts`` (default: every step time of the run)."""
+    def close(self):
+        """Flush and close output files."""
+        if self._output is not None:
+            self._output.close()
+            self._output = None
+
+    def run(self, write_output: bool = True, progress: bool = False,
+            scan: bool = True, ts: Optional[Iterable[float]] = None):
+        """Run the time loop over ``ts`` (default: every step time of
+        the run, and then the timer table is printed at LOGLEV >= 1).
+        ``scan`` is accepted for the JAX package's signature; every step
+        is dispatched on its own."""
         for t in (self.times() if ts is None else ts):
-            self.advance(t)
+            self.advance(t, write_output)
+            if progress:
+                print(f"  t={t:.0f}", flush=True)
+        self.close()
+        if ts is None:
+            # End-of-run timer table (reference PRINT_TIMERS, h:2255)
+            from mptrac_tpu_torch.utils.log import get_level
+            if get_level() >= 1:
+                self.timers.report()
+        return self.atm
+
+    def write_output(self, t: float):
+        """Output dispatcher (reference mptrac_write_output, c:7919)."""
+        from mptrac_tpu_torch.io.output import OutputManager
+        if self._output is None:
+            self._output = OutputManager(self.dirname, self.ctl)
+        self._output.write(self.met, self.atm, t)
+
+
+def run_trac(dirname: str, ctl_file: str, atm_file: str, args=(),
+             device="cuda", dtype=torch.float64) -> Simulation:
+    """Equivalent of the reference trac program for one dirlist task
+    (trac.c:95-185): read the control and particle files of ``dirname``,
+    run, write the outputs there."""
+    import time
+    dev = resolve_device(device)
+    ctl = read_ctl(os.path.join(dirname, ctl_file), args)
+    t0 = time.perf_counter()
+    atm = atm_io.read_atm(os.path.join(dirname, atm_file), ctl, dtype=dtype,
+                          device=dev)
+    dt_read = time.perf_counter() - t0
+    sim = Simulation(ctl, atm, dirname=dirname, dtype=dtype)
+    sim.timers.add("READ_ATM", "INPUT", dt_read)
+    sim.run()
+    return sim

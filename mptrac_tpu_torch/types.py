@@ -18,8 +18,8 @@ an explicit ``device`` (default ``"cuda"``; the tests pass ``"cpu"``).
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -136,8 +136,11 @@ class Met:
     3-D fields are [nx, ny, npl] (lon, lat, level) float32; 2-D fields
     [nx, ny].  ``lon`` is a regular axis (locate_reg); ``lat`` and
     ``p`` may be irregular.  ``coord_type`` 0 = lat/lon, 1 = Cartesian.
+    ``time`` stays on the host, so the run loop compares it with the
+    model time without waiting for the device: a float for a snapshot,
+    a pair of floats for a stacked pair.
     """
-    time: torch.Tensor                 # scalar [s]
+    time: Union[float, Tuple[float, float]]   # [s], host
     lon: torch.Tensor                  # [nx]
     lat: torch.Tensor                  # [ny]
     p: torch.Tensor                    # [npl] pressure levels [hPa]
@@ -193,7 +196,8 @@ def stack_met(met0: Met, met1: Met) -> Met:
         return torch.stack([a, b])
 
     return Met(
-        time=st(met0.time, met1.time), lon=st(met0.lon, met1.lon),
+        time=(float(met0.time), float(met1.time)),
+        lon=st(met0.lon, met1.lon),
         lat=st(met0.lat, met1.lat), p=st(met0.p, met1.p),
         hybrid=st(met0.hybrid, met1.hybrid),
         fields2d={k: st(v, met1.fields2d[k])
@@ -206,12 +210,58 @@ def stack_met(met0: Met, met1: Met) -> Met:
 
 
 @dataclass
+class ClimZm:
+    """One zonal-mean climatology (reference clim_zm_t, mptrac.h:3504)."""
+    time: torch.Tensor    # [ntime]
+    lat: torch.Tensor     # [nlat]
+    p: torch.Tensor       # [np]
+    vmr: torch.Tensor     # [ntime, nlat, np]
+
+
+@dataclass
+class ClimTs:
+    """One climatological time series (reference clim_ts_t,
+    mptrac.h:3484)."""
+    time: torch.Tensor    # [ntime]
+    vmr: torch.Tensor     # [ntime]
+
+
+def _no_table() -> torch.Tensor:
+    return torch.zeros(1, dtype=torch.float64)
+
+
+@dataclass
 class Clim:
-    """Climatological data (reference clim_t, mptrac.h:3536-3586).
-    Only the zonal-mean tropopause is ported so far."""
+    """Climatological data (reference clim_t, mptrac.h:3536-3586).  The
+    tables that the control parameters did not ask for stay empty."""
+    # Zonal-mean tropopause (built-in table, reference c:241-396)
     tropo_time: torch.Tensor          # [ntime]
     tropo_lat: torch.Tensor           # [nlat]
     tropo: torch.Tensor               # [ntime, nlat] hPa
+    # Photolysis table (clim_photo_t h:3428): rates [np, nsza, no3c]
+    photo_p: torch.Tensor = field(default_factory=_no_table)
+    photo_sza: torch.Tensor = field(default_factory=_no_table)
+    photo_o3c: torch.Tensor = field(default_factory=_no_table)
+    photo: Dict[str, torch.Tensor] = field(default_factory=dict)
+    # Zonal mean fields (clim_zm_t h:3504): vmr [ntime, nlat, np]
+    zm: Dict[str, ClimZm] = field(default_factory=dict)
+    # Time series (clim_ts_t h:3484)
+    ts: Dict[str, ClimTs] = field(default_factory=dict)
+
+    def replace(self, **kw) -> "Clim":
+        return dataclasses.replace(self, **kw)
+
+
+def _map_tensors(obj, fn):
+    """``fn`` applied to every tensor of a (nested) dataclass or dict."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, dict):
+        return {k: _map_tensors(v, fn) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj):
+        return type(obj)(**{f.name: _map_tensors(getattr(obj, f.name), fn)
+                            for f in dataclasses.fields(obj)})
+    return obj
 
 
 def astype_state(atm: Atm = None, cache: Cache = None, met: Met = None,
@@ -237,9 +287,6 @@ def astype_state(atm: Atm = None, cache: Cache = None, met: Met = None,
             lon=met.lon.to(dtype), lat=met.lat.to(dtype),
             p=met.p.to(dtype), hybrid=met.hybrid.to(dtype)))
     if clim is not None:
-        out.append(Clim(**{
-            f.name: (getattr(clim, f.name).to(dtype)
-                     if getattr(clim, f.name).dtype == torch.float64
-                     else getattr(clim, f.name))
-            for f in dataclasses.fields(clim)}))
+        out.append(_map_tensors(
+            clim, lambda a: a.to(dtype) if a.dtype == torch.float64 else a))
     return out[0] if len(out) == 1 else tuple(out)

@@ -39,9 +39,19 @@ def met_to_numpy(met):
 
 
 def clim_to_numpy(clim):
+    """The full Clim: tropopause, photolysis, zonal means, time series."""
     return dict(tropo_time=np.asarray(clim.tropo_time),
                 tropo_lat=np.asarray(clim.tropo_lat),
-                tropo=np.asarray(clim.tropo))
+                tropo=np.asarray(clim.tropo),
+                photo_p=np.asarray(clim.photo_p),
+                photo_sza=np.asarray(clim.photo_sza),
+                photo_o3c=np.asarray(clim.photo_o3c),
+                photo={k: np.asarray(v) for k, v in clim.photo.items()},
+                zm={k: dict(time=np.asarray(z.time), lat=np.asarray(z.lat),
+                            p=np.asarray(z.p), vmr=np.asarray(z.vmr))
+                    for k, z in clim.zm.items()},
+                ts={k: dict(time=np.asarray(s.time), vmr=np.asarray(s.vmr))
+                    for k, s in clim.ts.items()})
 
 
 def to_torch(atm=None, cache=None, met01=None, clim=None):

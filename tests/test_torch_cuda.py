@@ -158,3 +158,62 @@ def test_cuda_tensor_never_takes_the_plain_version(located):
         slab_interp.interp_uvwt(table, cell.to(torch.int64), w4)
     with pytest.raises(ValueError, match="float32"):
         slab_interp.meso_sigma(table.double(), cell)
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+
+
+def test_probe_kernels_match_plain(gpu):
+    """P1-P3 on every element: the lane probe does the lane kernel's
+    operations in its order (0.0), the two others move or double values
+    (bit-exact).  n is no multiple of a block or a tile."""
+    from mptrac_tpu_torch.ops import _cuda
+    from mptrac_tpu_torch.perf import probe
+    n, ncell = 300_007, 50_000
+    packT, base, w = probe.make_data(n, ncell, device="cuda")
+    before = dict(_cuda.launch_counts)
+    got = probe.probe_lane(packT, base, w)
+    assert torch.equal(got, probe.probe_lane_plain(packT, base, w))
+    assert float(got[4].min()) == 1.0 and float(got[5:].abs().max()) == 0.0
+    for G in probe.GRID_GROUPS:
+        x = torch.rand((8, 7 * G * 128), device="cuda")
+        assert torch.equal(probe.probe_grid(x, G),
+                           probe.probe_grid_plain(x, G))
+    tab, idx = probe.make_small_data(n, device="cuda")
+    idx[:3] = torch.tensor([0, 72, 127], dtype=torch.int32)
+    assert torch.equal(probe.probe_small(tab, idx),
+                       probe.probe_small_plain(tab, idx))
+    counts = {k: _cuda.launch_counts[k] - before[k] for k in before}
+    assert (counts["probe_lane"], counts["probe_grid"],
+            counts["probe_small"]) == (1, 3, 1)
+    with pytest.raises(ValueError, match="int32"):
+        probe.probe_small(tab, idx.to(torch.int64))
+
+
+@pytest.mark.parametrize("mode,fast", [("float32", "2"), ("float32", "1"),
+                                       ("float64", "0")])
+def test_run_trac_card_against_cpu(gpu, tmp_path, mode, fast):
+    """``run_trac`` from files on the card and on the CPU: three met files
+    of the synthetic wind, 10 steps across the met swap, the tolerances of
+    ten steps of the step tests (two math libraries' cos, log and exp: a
+    few ulp of a float32 position a step; in float64 the single-precision
+    Box-Muller)."""
+    from mptrac_tpu_torch.sim import run_trac
+    tols = {"float32": (6.2e-4, 6.2e-4), "float64": (1e-7, 5e-6)}[mode]
+    t_start, t_stop = 3600.0 - 900.0, 3600.0 + 900.0
+    flagship.write_case(str(tmp_path), 2048, (36, 19, 8), t_start, t_stop,
+                        900, extra_ctl=("TPU_FAST", fast))
+    sims = {dev: run_trac(str(tmp_path), "trac.ctl", "atm_in.bin",
+                          ("ATM_BASENAME", "atm_" + dev), device=dev,
+                          dtype=getattr(torch, mode))
+            for dev in ("cuda", "cpu")}
+    a, b = sims["cuda"].atm, sims["cpu"].atm
+    assert a.lon.is_cuda and len(sims["cuda"].met.reads) == 3
+    assert sims["cuda"].nsorts == sims["cpu"].nsorts == 3
+    assert float((a.lon.cpu() - b.lon).abs().max()) <= tols[0]
+    assert float((a.lat.cpu() - b.lat).abs().max()) <= tols[0]
+    assert float((a.p.cpu() - b.p).abs().max()) <= tols[1]
+    assert sims["cuda"].cache.rng_ctr == sims["cpu"].cache.rng_ctr

@@ -86,7 +86,9 @@ def test_make_wind_met_fields_equal():
     kw = dict(t0=3600.0, nx=36, ny=19, nz=8, alpha=30.0)
     a = jmake(**kw)
     b = tmake(device="cpu", **kw)
-    for name in ("time", "lon", "lat", "p", "hybrid"):
+    # (the port keeps a snapshot's time on the host)
+    assert isinstance(b.time, float) and b.time == float(a.time) == 3600.0
+    for name in ("lon", "lat", "p", "hybrid"):
         np.testing.assert_array_equal(np.asarray(getattr(a, name)),
                                       getattr(b, name).numpy(), name)
     assert set(a.fields3d) == set(b.fields3d)
@@ -130,10 +132,18 @@ def test_clim_tropo(dtype):
     np.testing.assert_allclose(got, exp, rtol=rtol, atol=0)
 
 
-def test_read_clim_raises_for_unported_climatology():
+def test_read_clim_raises_for_unported_climatology(tmp_path):
+    """Every climatology is ported now, so nothing raises as unported:
+    the OH zonal mean loads, and what still raises is a file that the
+    control parameters name and the disk lacks (the readers themselves
+    are held in tests/test_torch_clim.py)."""
     ctl = mtt.read_ctl(None, list(FLAGSHIP_ARGS)
                        + ["OH_CHEM_REACTION", "2"])
-    with pytest.raises(NotImplementedError, match="OH zonal mean"):
+    assert "oh" in tclim.read_clim(ctl, device="cpu").zm
+    ctl = mtt.read_ctl(None, list(FLAGSHIP_ARGS) + [
+        "OH_CHEM_REACTION", "2", "CLIM_OH_FILENAME",
+        str(tmp_path / "absent_OH.nc")])
+    with pytest.raises(FileNotFoundError, match="OH zonal mean"):
         tclim.read_clim(ctl, device="cpu")
 
 
@@ -146,3 +156,66 @@ def test_cuda_entry_points_raise_without_gpu():
         mtt.Atm.zeros(8, ("m",))
     with pytest.raises(RuntimeError, match="cuda"):
         tmake(nx=8, ny=5, nz=3)
+    # the readers place their tensors on the card by default as well
+    from mptrac_tpu_torch.met.build import read_met
+    ctl = mtt.read_ctl(None, ["MET_TROPO", "3"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tclim.read_clim(ctl)
+    with pytest.raises(RuntimeError, match="cuda"):
+        read_met(os.path.join(ROOT, "parity", "golden_long", "data",
+                              "met_2011_06_05_00.nc"), ctl)
+
+
+GOLDEN_CTLS = ("golden_chem", "golden_long", "golden_utm", "golden_zeta")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _unknown_keys(err):
+    return sorted(line.rsplit(": ", 1)[1] for line in err.splitlines()
+                  if "Unknown control parameter" in line)
+
+
+@pytest.mark.parametrize("name", GOLDEN_CTLS)
+def test_read_ctl_golden_files_fields_equal(name, capsys):
+    """read_ctl on the golden control files: every field equal to the
+    JAX package's (the files name their climatology paths themselves;
+    where one is left to the default it points into each package's own
+    data directory and compares by base name), and the same unknown-key
+    warnings (none of these files holds an array index that no scan
+    reaches)."""
+    path = os.path.join(ROOT, "parity", name, "data", "trac.ctl")
+    a = mt.read_ctl(path)
+    err_a = capsys.readouterr().err
+    b = mtt.read_ctl(path)
+    err_b = capsys.readouterr().err
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if f.name.startswith("clim_") and isinstance(va, str):
+            va, vb = os.path.basename(va), os.path.basename(vb)
+        assert va == vb, f.name
+    assert a.nq == b.nq > 5 and a.qnt_name == b.qnt_name
+    assert _unknown_keys(err_a) == _unknown_keys(err_b)
+
+
+def test_unknown_key_check_sees_out_of_range_indices(tmp_path, capsys):
+    """A deliberate difference (config.py:207 of the JAX package): an
+    array element that no scan reaches, like QNT_NAME[7] with NQ = 2, is
+    reported as unknown; the JAX check lets it pass because other
+    elements of the array were scanned.  A wildcard element and keys
+    that were scanned stay unreported in both."""
+    path = str(tmp_path / "trac.ctl")
+    with open(path, "w") as f:
+        f.write("NQ = 2\nQNT_NAME[0] = t\nQNT_NAME[1] = m\n"
+                "QNT_NAME[7] = zg\nQNT_UNIT[*] = K\nDT_MOD = 180\n"
+                "DT_MODD = 90\nDT_MOD[0] = 60\n")
+    a = mt.read_ctl(path)
+    err_a = capsys.readouterr().err
+    b = mtt.read_ctl(path)
+    err_b = capsys.readouterr().err
+    for f in dataclasses.fields(a):
+        if not f.name.startswith("clim_"):
+            assert getattr(a, f.name) == getattr(b, f.name), f.name
+    assert b.qnt_name == ("t", "m") and b.qnt_unit == ("K", "K")
+    assert b.dt_mod == 180.0
+    assert _unknown_keys(err_a) == ["DT_MODD"]
+    assert _unknown_keys(err_b) == ["DT_MODD", "DT_MOD[0]", "QNT_NAME[7]"]

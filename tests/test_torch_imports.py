@@ -25,7 +25,11 @@ def test_port_imports_no_jax():
     for name in ("rk_fused", "slab_interp", "fast_interp", "lane_interp",
                  "pallas_interp"):
         assert "mptrac_tpu_torch.ops." + name in mods
-    assert "mptrac_tpu_torch.sim" in mods
+    for name in ("sim", "timeutil", "climatology", "io.hdf5", "io.atm_io",
+                 "io.output", "met.read_nc", "met.process", "met.cape",
+                 "met.build", "met.write_nc", "physics.chem",
+                 "utils.timers", "tools._cli", "tools.trac", "perf.probe"):
+        assert "mptrac_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

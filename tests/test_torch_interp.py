@@ -117,3 +117,48 @@ def test_interp_time_f64(mets):
         np.testing.assert_allclose(got, exp, rtol=1e-12, atol=1e-12,
                                    equal_nan=True, err_msg=name)
         assert np.isfinite(exp).any(), name
+
+
+@pytest.mark.parametrize("axis", ["ascending", "descending"])
+def test_locate_irr_nan_lands_in_the_first_cell(axis):
+    """A NaN coordinate compares false with every node: the JAX
+    compare-count gives cell 0, and so does the port (a binary search
+    alone would sort NaN past the last node)."""
+    rng = np.random.default_rng(9)
+    xx = np.sort(rng.uniform(1, 1000, 23))
+    if axis == "descending":
+        xx = xx[::-1].copy()
+    x = rng.uniform(0, 1100, 200)
+    x[::7] = np.nan
+    x[:3] = xx[[0, 11, 22]]
+    for dtype in (np.float64, np.float32):
+        exp = np.asarray(jinterp.locate_irr(jnp.asarray(xx.astype(dtype)),
+                                            jnp.asarray(x.astype(dtype))))
+        got = tinterp.locate_irr(torch.from_numpy(xx.astype(dtype)),
+                                 torch.from_numpy(x.astype(dtype))).numpy()
+        np.testing.assert_array_equal(got, exp)
+        assert (got[::7] == 0).all() and got.max() == 21
+
+
+def test_locate_3d_with_nan_positions(mets):
+    """NaN longitudes, latitudes and pressures through locate_3d: the
+    same cells as the JAX package, and NaN weights in the same places."""
+    jm, tm = mets
+    lon, lat, p = _points(jm, seed=6, n=600)
+    lon[5::11] = np.nan
+    lat[6::13] = np.nan
+    p[7::17] = np.nan
+    jl = jinterp.locate_3d(jm, jnp.asarray(lon), jnp.asarray(lat),
+                           jnp.asarray(p))
+    tl = tinterp.locate_3d(tm, torch.from_numpy(lon), torch.from_numpy(lat),
+                           torch.from_numpy(p))
+    for name in ("ix", "iy", "iz"):
+        np.testing.assert_array_equal(getattr(tl, name).numpy(),
+                                      np.asarray(getattr(jl, name)), name)
+    assert int(tl.iy[6]) == 0 and int(tl.iz[7]) == 0
+    for name in ("wx", "wy", "wz"):
+        got, exp = getattr(tl, name).numpy(), np.asarray(getattr(jl, name))
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(exp), name)
+        np.testing.assert_allclose(got, exp, rtol=1e-12, atol=1e-15,
+                                   err_msg=name)
+    assert np.isnan(tl.wy.numpy()[6]) and np.isnan(tl.wz.numpy()[7])

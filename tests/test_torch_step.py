@@ -26,7 +26,7 @@ from mptrac_tpu_torch.physics import diffusion as tdiff
 from mptrac_tpu_torch.physics import pipeline as tpipe
 from mptrac_tpu_torch.physics import position as tpos
 from mptrac_tpu_torch.physics import timesteps as tts
-from mptrac_tpu_torch.sim import Simulation
+from mptrac_tpu_torch.sim import FixedMet, Simulation
 
 NSTEPS = 10
 SORT_AT = 6      # a sort before this step (1-based)
@@ -68,7 +68,9 @@ def test_flagship_setup_equals_reference(runs):
     setup, jstates, tstates = runs
     tclim2, tmet2, tatm2 = setup["own"]
     tmet, tclim = setup["tmet"], setup["tclim"]
-    for name in ("time", "lon", "lat", "p"):
+    # (the pair's time is a host value: a pair of floats)
+    assert tmet2.time == tmet.time == (0.0, 3600.0)
+    for name in ("lon", "lat", "p"):
         np.testing.assert_array_equal(getattr(tmet2, name).numpy(),
                                       getattr(tmet, name).numpy())
     for k in tmet.fields3d:
@@ -164,10 +166,12 @@ def test_simulation_loop_matches_manual_steps(runs):
     the hand-written sequence above bit for bit: SORT_DT 900 makes the
     sort due at t = 900 (before step 5) and t = 1800 (before 10)."""
     setup, _, tstates = runs
-    tctl = setup["tctl"].replace(sort_dt=900.0)
+    tctl = setup["tctl"].replace(sort_dt=900.0, tpu_fast=2)
     atm, cache = tstates[0]
-    sim = Simulation(tctl, setup["tclim"], setup["tmet"], atm, cache,
-                     setup["tpack"])
+    # (the loop builds its own pack from TPU_FAST and SORT_DT: the cell
+    # pack, as setup["tpack"] is)
+    sim = Simulation(tctl, atm, setup["tclim"], met=FixedMet(setup["tmet"]),
+                     cache=cache)
     ref_a, ref_c = atm, cache
     for i in range(1, 11):
         t = 180.0 * i
@@ -176,7 +180,7 @@ def test_simulation_loop_matches_manual_steps(runs):
         ref_a, ref_c = tpipe.run_timestep(tctl, setup["tclim"],
                                           setup["tmet"], ref_a, ref_c, t,
                                           pack=setup["tpack"])
-    sim.run([180.0 * i for i in range(1, 11)])
+    sim.run(write_output=False, ts=[180.0 * i for i in range(1, 11)])
     assert sim.nsorts == 2
     np.testing.assert_array_equal(sim.atm.lon.numpy(), ref_a.lon.numpy())
     np.testing.assert_array_equal(sim.atm.p.numpy(), ref_a.p.numpy())
@@ -302,11 +306,15 @@ def test_unported_gate_raises(mid):
         with pytest.raises(NotImplementedError, match="interp_4d_zeta"):
             tpipe.run_timestep(ctl, setup["tclim"], setup["tmet"], ta, tc,
                                720.0, pack=setup["tpack"])
-    # a climatological quantity of module_meteo
+    # a climatological quantity of module_meteo is ported now: without
+    # its table in the Clim the step runs and leaves the quantity alone
+    # (tests/test_torch_clim.py holds the quantities themselves)
     ctl = setup["tctl"].replace(qnt_name=("t", "m", "oh"))
-    with pytest.raises(NotImplementedError, match="oh"):
-        tpipe.run_timestep(ctl, setup["tclim"], setup["tmet"], ta, tc,
-                           720.0, pack=None)
+    mark = torch.full_like(ta.p, 3.0)
+    got, _ = tpipe.run_timestep(
+        ctl, setup["tclim"], setup["tmet"],
+        ta.replace(q=dict(ta.q, oh=mark)), tc, 720.0, pack=None)
+    assert torch.equal(got.q["oh"], mark)
 
 
 # ------------------------------- the unfused and the exact path, whole
