@@ -24,7 +24,12 @@ non-zero code and prints no result.  Phases, each of which must pass:
    PyTorch version on the main path's own tensors (the plain version
    evaluated in chunks, to bound its temporaries), with its time, the
    plain version's, a library call's where one computes the same
-   function, and the bound from bytes and operations;
+   function, and the bound from bytes and operations; K1 with its
+   registers, spills and resident blocks for each RK scheme; K3 also on
+   the main path's own re-sort permutation (the loop stepped on, outside
+   the counted run, to the state that the next sort sees), as its count
+   pass plans it and on each of its two paths forced, and its count pass
+   against the plain count;
 5. unfused path: the same configuration on the unfused kernels
    (``TPU_FAST 1``: one interpolation launch per RK node, the sigma
    kernel after the turbulent displacement, the meteo sampling of
@@ -61,9 +66,9 @@ The ``{"kernels": [...]}`` line lists K1-K7 and P1-P3.
 
 N is fixed at 100,663,296 parcels (100M rounded up to a multiple of
 2^21, the size the JAX benchmark uses).  ``--np`` and ``--steps`` exist
-for short debugging runs; ``--profile`` adds, for each path, a pass
-over two extra steps timed module by module and a profiler pass that
-prints the device time by kernel.
+for short debugging runs; ``--profile`` adds, for each path, a pass over two extra steps timed
+module by module and a profiler pass that prints the device time by
+kernel.
 """
 
 import argparse
@@ -71,6 +76,7 @@ import importlib.metadata
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -171,19 +177,45 @@ def phase_environment(torch):
     return smi.splitlines()[0]
 
 
+def ptxas_usage(text):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from the
+    ``-Xptxas -v`` lines of the build log."""
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage.setdefault(name, {})["registers"] = int(m.group(1))
+    return usage
+
+
 def phase_build():
+    """Builds the kernels; returns the registers and spills of each
+    kernel as the build log gives them."""
     from mptrac_tpu_torch.ops import _cuda
     t0 = time.time()
     lib = _cuda.build()
     _cuda.load()
     dt = time.time() - t0
     say(f"[build] {lib} in {dt:.1f} s")
+    usage = {}
     if os.path.exists(_cuda.build_log_path()):
         with open(_cuda.build_log_path()) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    say("[build] " + line.strip())
-    return dt
+            usage = ptxas_usage(f.read())
+        for name, u in sorted(usage.items()):
+            say(f"[build] {name}: {json.dumps(u)}")
+    return usage
 
 
 def drive_flagship(torch, tag, n, steps, profile, extra_args):
@@ -217,6 +249,7 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args):
     sim.sort()                               # initial sort (random order)
     torch.cuda.synchronize()
     sort0_s = time.time() - t0
+    sort_peak = torch.cuda.max_memory_allocated()
     lon_sorted = sim.atm.lon.clone()
     t0 = time.time()
     sim.run(write_output=False, ts=ts[:WARMUP_STEPS])
@@ -259,14 +292,22 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args):
             and abs(float(a.q["t"].max()) - 280.0) < 1e-2):
         raise RuntimeError(f"{tag}: sampled temperature is not 280 K")
     expect_sorts = 1 + sum(1 for t in ts if math.fmod(t, SORT_DT) == 0)
-    if counts["permute_cols"] != expect_sorts or (
-            steps >= TIMED_STEPS and counts["permute_cols"] < 2):
-        raise RuntimeError(f"{tag}: K3 launches {counts['permute_cols']}, "
-                           f"expected {expect_sorts}")
+    k3 = {k: counts[f"permute_{k}"] for k in ("count", "gather", "pack",
+                                               "rows")}
+    # one count pass a sort, then the gather or the pack and rows kernels;
+    # the first sort (a random order) takes the row path, the re-sort of
+    # the timed steps the gather path
+    if (sim.nsorts != expect_sorts or k3["count"] != expect_sorts
+            or k3["pack"] != k3["rows"]
+            or k3["gather"] + k3["rows"] != expect_sorts
+            or (steps >= TIMED_STEPS and min(k3.values()) < 1)):
+        raise RuntimeError(f"{tag}: {sim.nsorts} sorts, K3 launches {k3}, "
+                           f"expected {expect_sorts} sorts")
     stats = {
         "n_parcels": n, "grid": list(GRID), "steps_timed": steps,
         "steps_warmup": WARMUP_STEPS, "resorts": sim.nsorts - 1,
-        "initial_sort_s": sort0_s, "warmup_s": warm_s,
+        "initial_sort_s": sort0_s, "initial_sort_peak_bytes": sort_peak,
+        "warmup_s": warm_s,
         "timed_s": timed_s, "ms_per_step": 1e3 * timed_s / steps,
         "parcel_steps_per_s": n * steps / timed_s,
         "peak_memory_allocated_bytes": peak,
@@ -396,11 +437,38 @@ def bound_ms(nbytes, ops):
             "bytes" if b_bytes >= b_ops else "operations", b_bytes, b_ops)
 
 
-def phase_kernels(torch, sim, counts):
+def resort_perm(torch, sim):
+    """The permutation of the main path's next re-sort, and how far it
+    moves the parcels.  The loop is advanced (outside the counted run)
+    to the state that the next sort of ``SORT_DT`` sees, SORT_DT of drift
+    after the last one, and the sort's own key is argsorted there."""
+    from mptrac_tpu_torch.ops.sort import sort_key
+
+    dt_mod = sim.ctl.dt_mod
+    t = float(sim.atm.time[0]) + dt_mod
+    ts = []
+    while math.fmod(t, SORT_DT) != 0:
+        ts.append(t)
+        t += dt_mod
+    sim.run(write_output=False, ts=ts)
+    perm = torch.sort(sort_key(sim.met.pair, sim.atm), stable=True).indices
+    n = perm.shape[0]
+    d = (perm - torch.arange(n, device=perm.device)).abs_()
+    shares = {f"le_{k}": int((d <= k).sum()) / n for k in (32, 4096, 65536)}
+    shares["beyond_65536"] = int((d > 65536).sum()) / n
+    del d
+    say(f"[kernels] re-sort permutation after {len(ts)} more steps "
+        f"(drift since the last sort: {SORT_DT:.0f} s): |perm[i] - i| "
+        + json.dumps(shares))
+    return perm, shares
+
+
+def phase_kernels(torch, sim, counts, usage):
     """K1-K3 against their plain versions on the main path's tensors."""
     from mptrac_tpu_torch.ops import interp, rk_fused, slab_interp
     from mptrac_tpu_torch.physics.timesteps import module_timesteps
 
+    perm_resort, shares = resort_perm(torch, sim)
     atm, cache, met01, pack = sim.atm, sim.cache, sim.met.pair, sim.pack
     n = atm.npmax
     t_next = float(atm.time[0]) + sim.ctl.dt_mod
@@ -459,9 +527,18 @@ def phase_kernels(torch, sim, counts):
         per_locate = 19 + search
         ops = n * (nstage * (per_locate + 6 * 21 + 9 + 6 + 20)
                    + per_locate + 2 * 21 + 3 + 159 + 25)
+        attrs = rk_fused.kernel_attributes(cell, nstage)
+        ptxas = [u for name, u in usage.items()
+                 if "rk_kernel" in name and f"ILi{nstage}E" in name]
         k1[nstage] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                           bytes=nbytes, operations=ops,
-                          cell_crossers=crossers)
+                          cell_crossers=crossers,
+                          registers=attrs["registers"],
+                          spills=(ptxas[0].get("spill_stores", 0)
+                                  + ptxas[0].get("spill_loads", 0)
+                                  if ptxas else None),
+                          local_bytes=attrs["local_bytes"],
+                          blocks_per_sm=attrs["blocks_per_sm"])
     main_stage = sim.ctl.advect
     b, by, b_bytes, b_ops = bound_ms(k1[main_stage]["bytes"],
                                      k1[main_stage]["operations"])
@@ -477,8 +554,12 @@ def phase_kernels(torch, sim, counts):
         bound_bytes_ms=b_bytes, bound_operations_ms=b_ops,
         bytes_per_parcel=48, tolerance=tol1,
         cell_crossers=k1[main_stage]["cell_crossers"],
+        registers=k1[main_stage]["registers"],
+        spills=k1[main_stage]["spills"],
+        blocks_per_sm=k1[main_stage]["blocks_per_sm"],
         variants={str(k): {kk: v[kk] for kk in (
-            "max_abs_err", "ms", "plain_ms", "cell_crossers")}
+            "max_abs_err", "ms", "plain_ms", "cell_crossers", "registers",
+            "spills", "local_bytes", "blocks_per_sm")}
             for k, v in k1.items()}))
 
     # ---- K2: the main path's fields (pbl, ps) at its located parcels,
@@ -534,43 +615,80 @@ def phase_kernels(torch, sim, counts):
     del table, basexy, w3
 
     # ---- K3: every state column of the sort, on a random and on a
-    # banded permutation (blocks of 4096 shuffled within themselves)
+    # banded permutation (blocks of 4096 shuffled within themselves), and
+    # on the main path's own re-sort; each as planned and on each path
+    # forced, every result against the plain gather bit for bit, and the
+    # count pass that plans it against the plain count
     cols = [cache.uvwp[0], cache.uvwp[1], cache.uvwp[2], atm.lon, atm.lat,
             atm.p, cache.dt] + [atm.q[k] for k in atm.q]
     stacked = torch.stack(cols)
     k3 = {}
-    for kind in ("random", "banded"):
+    for kind in ("random", "banded", "resort"):
         if kind == "random":
             perm = torch.randperm(n, device="cuda", generator=gen)
+        elif kind == "resort":
+            perm, perm_resort = perm_resort, None
         else:
             blk = torch.arange(n, device="cuda", dtype=torch.float64)
             blk = torch.div(blk, 4096, rounding_mode="floor") + torch.rand(
                 n, device="cuda", dtype=torch.float64, generator=gen)
             perm = torch.sort(blk).indices
             del blk
-        got32, got64 = slab_interp.permute_cols(cols, perm, atm.time)
+        sectors = slab_interp.permute_sectors(perm)
+        sampled = slab_interp.permute_sampled(n)
+        sectors_plain = slab_interp.permute_sectors_plain(perm)
+        if sectors != sectors_plain:
+            raise RuntimeError(f"K3 count pass ({kind}): {sectors} sectors, "
+                               f"the plain count {sectors_plain}")
+        plan = slab_interp.permute_plan(perm)
         exp32, exp64 = slab_interp.permute_cols_plain(cols, perm, atm.time)
-        exact = bool(torch.equal(got32, exp32)) and bool(
-            torch.equal(got64, exp64))
-        if not exact:
-            raise RuntimeError(f"K3 ({kind}): permuted state differs")
-        del got32, got64, exp32, exp64
+        for force in (None, "rows", "gather"):
+            got32, got64 = slab_interp.permute_cols(cols, perm, atm.time,
+                                                    plan=force)
+            if not (bool(torch.equal(got32, exp32))
+                    and bool(torch.equal(got64, exp64))):
+                raise RuntimeError(f"K3 ({kind}, path {force or plan}): "
+                                   "permuted state differs")
+            del got32, got64
+        del exp32, exp64
         ms = time_ms(lambda: slab_interp.permute_cols(cols, perm, atm.time),
                      torch, repeats=3)
+        by_path = {p: time_ms(lambda: slab_interp.permute_cols(
+            cols, perm, atm.time, plan=p), torch, repeats=3)
+            for p in ("rows", "gather")}
+        count_ms = time_ms(lambda: slab_interp.permute_sectors(perm), torch,
+                           repeats=3)
+        count_plain_ms = time_ms(
+            lambda: slab_interp.permute_sectors_plain(perm), torch,
+            repeats=3)
         plain = time_ms(lambda: slab_interp.permute_cols_plain(
             cols, perm, atm.time), torch, repeats=3)
         lib = time_ms(lambda: (torch.index_select(stacked, 1, perm),
                                torch.index_select(atm.time, 0, perm)),
                       torch, repeats=3)
-        k3[kind] = dict(ms=ms, plain_ms=plain, library_ms=lib)
+        k3[kind] = dict(ms=ms, plain_ms=plain, library_ms=lib, path=plan,
+                        ms_by_path=by_path, sectors=sectors,
+                        sectors_per_output=sectors / sampled,
+                        count_ms=count_ms,
+                        count_plain_ms=count_plain_ms)
+        say(f"[kernels] K3 {kind}: " + json.dumps(k3[kind]))
         del perm
     per_parcel = 8 + 8 * len(cols) + 16
     b_bytes = bound_ms(n * per_parcel, 0)[0]
+    rw = slab_interp.permute_row_words(len(cols), True)
+    # the count pass reads perm at the outputs it samples (8 B each), its
+    # compares and adds far below that
+    sampled = slab_interp.permute_sampled(n)
+    b_count, by_count, _, _ = bound_ms(sampled * 8, sampled * 4)
     kernels.append(dict(
         name="permute_cols", route="cuda",
         source="mptrac_tpu_torch/csrc/permute_cols.cu",
         replaces="mptrac_tpu/ops/slab_interp.py:303",
-        launches=counts["permute_cols"], max_abs_err=0.0,
+        launches=(counts["permute_gather"] + counts["permute_pack"]
+                  + counts["permute_rows"]),
+        launches_by_kernel={k: counts[f"permute_{k}"]
+                            for k in ("gather", "pack", "rows")},
+        max_abs_err=0.0,
         ms=k3["random"]["ms"], plain_ms=k3["random"]["plain_ms"],
         bound_ms=b_bytes, bound_by="bytes",
         library_ms=k3["random"]["library_ms"], n=n,
@@ -578,7 +696,22 @@ def phase_kernels(torch, sim, counts):
         bytes_per_parcel=per_parcel, tolerance=0.0,
         ms_banded=k3["banded"]["ms"],
         plain_ms_banded=k3["banded"]["plain_ms"],
-        library_ms_banded=k3["banded"]["library_ms"]))
+        library_ms_banded=k3["banded"]["library_ms"],
+        ms_resort=k3["resort"]["ms"],
+        plain_ms_resort=k3["resort"]["plain_ms"],
+        library_ms_resort=k3["resort"]["library_ms"],
+        resort_displacement_shares=shares,
+        paths={k: v["path"] for k, v in k3.items()},
+        ms_by_path={k: v["ms_by_path"] for k, v in k3.items()},
+        sectors_per_output={k: v["sectors_per_output"]
+                            for k, v in k3.items()},
+        row_bytes=4 * rw, scratch_bytes=4 * rw * n,
+        count_kernel=dict(
+            launches=counts["permute_count"], max_abs_err=0,
+            ms=k3["random"]["count_ms"],
+            plain_ms=k3["random"]["count_plain_ms"], bound_ms=b_count,
+            bound_by=by_count, library_ms=None,
+            ms_by_permutation={k: v["count_ms"] for k, v in k3.items()})))
     return kernels
 
 
@@ -962,9 +1095,10 @@ def phase_trac_path(torch, n):
                 f"trac path: the run did not cross one met swap (files "
                 f"{[r['file'] for r in sim.met.reads]}, pair "
                 f"{sim.met.pair.time})")
-        if sim.nsorts != 2 or counts["permute_cols"] != 2:
-            raise RuntimeError(f"trac path: {sim.nsorts} sorts, K3 launches "
-                               f"{counts['permute_cols']}, expected 2")
+        if sim.nsorts != 2 or counts["permute_count"] != 2:
+            raise RuntimeError(f"trac path: {sim.nsorts} sorts, K3 count "
+                               f"passes {counts['permute_count']}, "
+                               "expected 2")
         if counts["rk_fused_advect"] != nadv or counts["sfc_interp"] < nadv:
             raise RuntimeError(
                 f"trac path: K1 launches {counts['rk_fused_advect']}, K2 "
@@ -1243,9 +1377,9 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_start = time.time()
     smi = phase_environment(torch)
-    phase_build()
+    usage = phase_build()
     sim, counts = phase_main_path(torch, args.np, args.steps, args.profile)
-    kernels = phase_kernels(torch, sim, counts)
+    kernels = phase_kernels(torch, sim, counts, usage)
     del sim                     # one simulation is freed before the next
     torch.cuda.empty_cache()
     sim, counts = phase_unfused_path(torch, args.np, args.steps,

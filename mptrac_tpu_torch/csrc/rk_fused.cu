@@ -8,19 +8,23 @@
 // version (ops/rk_fused.py:rk_plain) follows the same rounding steps; only
 // cosf may differ between math libraries.
 //
-// What bounds it on an H100: bytes, and among them the gathered table reads.
-// A parcel streams 5 inputs and 7 outputs (48 bytes, coalesced) but reads
-// 8 corners x 32 bytes per locate, (nstage + 1) locates a step.  The table
-// of a 361x181x61 grid is 127 MB, more than the 50 MB L2, so the design
-// keeps the gathers local instead of making them fewer:
+// What bounds it on an H100: latency, then instructions.  A parcel
+// streams 5 inputs and 7 outputs (48 bytes, coalesced) and gathers 8
+// corners x 32 bytes per locate, (nstage + 1) locates a step; each locate
+// depends on the wind of the one before, so a parcel's gather rounds are
+// serial and only other warps hide them.  The design:
 //   * the table is row-major [npl, nx, ny, 8] f32: one cell is one 32-byte
 //     sector holding (u0,v0,w0,u1,v1,w1,t0,t1), read as two 16-byte loads;
-//   * it is level-major like the sort key, so parcels that are neighbours in
+//     it is level-major like the sort key, so parcels that are neighbours in
 //     the sorted state read neighbouring sectors and share them in L1/L2;
 //   * after the longitude wrap ix <= nx-2, so no corner crosses the seam and
 //     the table needs no margin columns; every parcel is served here;
-//   * the lat and p axes (a few hundred floats) sit in shared memory for the
-//     compare-count locate and the weight lookups.
+//   * the lat and p axes sit in shared memory; the level (and an irregular
+//     latitude) is found by a binary search there, ceil(log2(n + 1)) steps
+//     instead of a compare over every node (the same index on the strictly
+//     monotonic axes that build_cell_pack admits);
+//   * blocks of kBlock threads with the registers held for kMinBlocks of
+//     them a multiprocessor, so 32 warps are resident to hide the gathers.
 // The corner load, the interpolation and the sigma are interp_common.cuh's,
 // shared with the unfused kernels (uvwt_interp.cu, meso_sigma.cu).
 
@@ -49,6 +53,14 @@ struct RkParams {
   int cartesian, lat_reg, lat_asc, p_asc;
 };
 
+// threads a block, and the blocks a multiprocessor that the register
+// budget is set for: 8 x 128 threads, 32 warps a multiprocessor, holds
+// ptxas to 64 registers (with a few hundred bytes of spill) where it would
+// take 88-90 and fit 16 warps; the three gather rounds of a parcel are
+// serial, so only other warps hide them
+constexpr int kBlock = 128;
+constexpr int kMinBlocks = 8;
+
 // float32 roundings of the double products, as the plain version forms them
 constexpr float kPiRe = (float)(3.14159265358979323846 * 6367.421);
 constexpr float kDeg2Rad = (float)(3.14159265358979323846 / 180.0);
@@ -76,13 +88,21 @@ struct Loc {
   float wx, wy, wz;
 };
 
+// The number of nodes with ax[i] <= x (ascending axis) or ax[i] > x
+// (descending), the plain version's compare-count.  On a strictly
+// monotonic axis (build_cell_pack raises on any other) those nodes are a
+// prefix, so a binary search for the prefix's length gives the same
+// integer in ceil(log2(n + 1)) steps; a NaN position fails every compare
+// and counts 0 in both.
 __device__ __forceinline__ int count_axis(const float* ax, int n, float x,
                                           bool asc) {
   int c = 0;
-  if (asc) {
-    for (int i = 0; i < n; ++i) c += (ax[i] <= x) ? 1 : 0;
-  } else {
-    for (int i = 0; i < n; ++i) c += (ax[i] > x) ? 1 : 0;
+  for (int step = 1 << (31 - __clz(n)); step > 0; step >>= 1) {
+    const int j = c + step;
+    if (j <= n) {
+      const float a = ax[j - 1];
+      if (asc ? (a <= x) : (a > x)) c = j;
+    }
   }
   return c;
 }
@@ -91,18 +111,24 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
+// torch.clamp's (and jnp.clip's) float clamp: a NaN stays NaN, where
+// fminf / fmaxf would return the bound
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return v != v ? v : fminf(fmaxf(v, lo), hi);
+}
+
 __device__ __forceinline__ Loc locate(const RkParams& P, const float* s_lat,
                                       const float* s_p, float xlon, float xlat,
                                       float xp) {
   float lon2;
   if (P.cartesian) {
-    lon2 = fminf(fmaxf(xlon, P.lon_first), P.lon_last);
+    lon2 = clampf(xlon, P.lon_first, P.lon_last);
   } else {
     lon2 = xlon - truncf(xlon / 360.0f) * 360.0f;
     if (lon2 < P.lon_first) lon2 = lon2 + 360.0f;
     if (lon2 > P.lon_last) lon2 = lon2 - 360.0f;
   }
-  const float lat2 = fminf(fmaxf(xlat, P.lat_lo), P.lat_hi);
+  const float lat2 = clampf(xlat, P.lat_lo, P.lat_hi);
   const int ix = clampi((int)floorf((lon2 - P.lon0) / P.dlon), 0, P.nx - 2);
   int iy;
   if (P.lat_reg) {
@@ -140,7 +166,7 @@ __device__ __forceinline__ float dy2coord(float dym, bool cart) {
 }
 
 template <int NSTAGE>
-__global__ void __launch_bounds__(256) rk_kernel(RkParams P) {
+__global__ void __launch_bounds__(kBlock, kMinBlocks) rk_kernel(RkParams P) {
   extern __shared__ float smem[];
   float* s_lat = smem;
   float* s_p = smem + P.ny;
@@ -230,7 +256,7 @@ extern "C" int rk_fused_advect(
   P.lat_lo = lat_lo; P.lat_hi = lat_hi; P.inv_tden = inv_tden;
   P.cartesian = cartesian; P.lat_reg = lat_reg; P.lat_asc = lat_asc;
   P.p_asc = p_asc;
-  const int block = 256;
+  const int block = kBlock;
   const long long nblk = mptrac::grid_blocks(n, block);
   if (nblk < 0) return (int)cudaErrorInvalidValue;
   const size_t shmem = (size_t)(ny + npl) * sizeof(float);
@@ -244,4 +270,25 @@ extern "C" int rk_fused_advect(
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// What the compiled kernel of `nstage` takes on this card: out[0] registers
+// a thread, out[1] local memory a thread in bytes (spills and stack), out[2]
+// resident blocks a multiprocessor at the launch's block size and shared
+// memory for axes of ny + npl nodes.
+extern "C" int rk_fused_attributes(int nstage, int ny, int npl, int* out) {
+  const void* f;
+  switch (nstage) {
+    case 1: f = (const void*)rk_kernel<1>; break;
+    case 2: f = (const void*)rk_kernel<2>; break;
+    case 4: f = (const void*)rk_kernel<4>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, f);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], f, kBlock, (size_t)(ny + npl) * sizeof(float));
 }

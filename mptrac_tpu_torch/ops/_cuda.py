@@ -37,9 +37,12 @@ SOURCES = ("rk_fused.cu", "sfc_interp.cu", "permute_cols.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: kernel launches per wrapper since the last reset (a wrapper adds one
-#: where it launches its kernel and nowhere else)
-launch_counts = {"rk_fused_advect": 0, "sfc_interp": 0, "permute_cols": 0,
+#: launches per kernel since the last reset (a wrapper adds one where it
+#: launches the kernel and nowhere else); K3's wrapper permute_cols
+#: launches permute_gather, or permute_pack and permute_rows, and its
+#: plan launches permute_count
+launch_counts = {"rk_fused_advect": 0, "sfc_interp": 0, "permute_gather": 0,
+                 "permute_pack": 0, "permute_rows": 0, "permute_count": 0,
                  "uvwt_interp": 0, "meso_sigma": 0, "lane_interp_uvwt": 0,
                  "lane_meso_sigma": 0, "uvw_rows_interp": 0,
                  "probe_lane": 0, "probe_grid": 0, "probe_small": 0}
@@ -138,12 +141,17 @@ def load() -> ctypes.CDLL:
     lib.rk_fused_advect.argtypes = (
         [i32] + [vp] * 9 + [i64, i32, i32, i32] + [f32] * 7 + [i32] * 4
         + [vp])
+    lib.rk_fused_attributes.restype = i32
+    lib.rk_fused_attributes.argtypes = [i32, i32, i32, vp]
     lib.sfc_interp.restype = i32
     lib.sfc_interp.argtypes = (
         [vp] * 6 + [i64, i32, i32, i32, ctypes.c_ulonglong, vp])
     lib.permute_cols.restype = i32
     lib.permute_cols.argtypes = [
-        ctypes.POINTER(vp), ctypes.POINTER(vp), i32, vp, vp, vp, i64, vp]
+        ctypes.POINTER(vp), ctypes.POINTER(vp), i32, vp, vp, vp, i64, i32,
+        i32, vp, vp]
+    lib.permute_count.restype = i32
+    lib.permute_count.argtypes = [vp, i64, vp, vp]
     lib.uvwt_interp.restype = i32
     lib.uvwt_interp.argtypes = [vp] * 7 + [i64, i32, i32, i32, vp]
     lib.meso_sigma.restype = i32

@@ -24,6 +24,7 @@ only for CPU tensors.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -83,6 +84,16 @@ def build_cell_pack(met01: Met) -> CellPack:
     lon_np = lons.detach().cpu().numpy()
     lat_np = lats.detach().cpu().numpy().astype(f32)
     p_np = ps.detach().cpu().numpy().astype(f32)
+    # the kernel's locate finds the cell by a binary search, which gives
+    # the compare-count's index only on a strictly monotonic axis (a
+    # deliberate difference from the JAX package, whose compare-count has
+    # no meaning on another axis either)
+    for name, ax in (("latitude", lat_np), ("pressure", p_np)):
+        d = np.diff(ax)
+        if not (np.all(d > 0) or np.all(d < 0)):
+            raise ValueError(f"build_cell_pack: the {name} axis of the met "
+                             f"pair is not strictly monotonic in float32: "
+                             f"{ax.tolist()}")
     times = np.asarray(met01.time, np.float64)
     return CellPack(
         table=table,
@@ -291,6 +302,18 @@ def _rk_cuda(pack: CellPack, nstage: int, lon, lat, p, dtp, wt0):
     _cuda.check(code, "rk_fused_advect")
     _cuda.launch_counts["rk_fused_advect"] += 1
     return tuple(out[r] for r in range(7))
+
+
+def kernel_attributes(pack: CellPack, nstage: int) -> dict:
+    """What the compiled CUDA kernel of ``nstage`` takes on the current
+    card: registers and local memory (spills, stack) a thread, and
+    resident blocks a multiprocessor at its launch configuration."""
+    _rk_fracs(nstage)
+    out = (ctypes.c_int * 3)()
+    _cuda.check(_cuda.load().rk_fused_attributes(
+        nstage, pack.ny, pack.npl, out), "rk_fused_attributes")
+    return {"registers": out[0], "local_bytes": out[1],
+            "blocks_per_sm": out[2]}
 
 
 def advect_all(pack: CellPack, nstage: int, lon, lat, p, dtp, wt0

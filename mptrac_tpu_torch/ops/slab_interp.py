@@ -9,7 +9,8 @@ Counterpart of the four modes of the JAX package's
   with the reference's nearest-neighbour fallback for non-finite
   corners and the single-snapshot fallback (c:3084-3166);
 * ``permute_cols`` (mode ``"gather8"``, ``permute_f32_cols``): the
-  column permutation of the sort;
+  column permutation of the sort, on the kernel's gather path or row
+  path as a count pass over the permutation plans it;
 * ``interp_uvwt`` / ``uvwt_from_loc`` (mode ``"uvwt"``): trilinear +
   time interpolation of u, v, w and T, the interpolation of the unfused
   advection and of the meteo sampling;
@@ -21,9 +22,9 @@ The last two read the per-cell table of ``ops.rk_fused``
 take a flat level-major cell ``(iz*nx + ix)*ny + iy``; the upper
 corner of an axis repeats the last node where the cell is the last one.
 
-A GPU thread gathers for its own parcel, so none needs sorted input,
-windows or a repair pass: every parcel is served and any permutation is
-exact.  CUDA tensors go to the kernels in ``csrc/sfc_interp.cu``,
+A GPU thread gathers for its own parcel, so none needs sorted input or
+a repair pass: every parcel is served and any permutation is exact.
+CUDA tensors go to the kernels in ``csrc/sfc_interp.cu``,
 ``csrc/permute_cols.cu``, ``csrc/uvwt_interp.cu`` and
 ``csrc/meso_sigma.cu`` (or raise); CPU tensors to the plain versions
 below, which repeat the kernels' arithmetic.
@@ -46,6 +47,10 @@ SFC_FIELDS = ("ps", "pbl", "ts", "zs", "cape", "cin", "pel", "plcl",
 
 #: most float32 columns one permute launch takes (csrc kMaxCols)
 PERMUTE_MAX_COLS = 32
+#: the permute kernel's count pass reads every PERMUTE_COUNT_EVERY-th
+#: block of PERMUTE_COUNT_BLOCK outputs (csrc kCountEvery, kBlock)
+PERMUTE_COUNT_BLOCK = 256
+PERMUTE_COUNT_EVERY = 8
 
 
 def build_sfc_table(met01: Met) -> torch.Tensor:
@@ -157,12 +162,71 @@ def permute_cols_plain(cols32: Sequence[torch.Tensor], perm,
     return out, (col64[perm] if col64 is not None else None)
 
 
-def _permute_cuda(cols32, perm, col64):
+def permute_sampled(n):
+    """Outputs that the count pass reads of a permutation of ``n``: every
+    PERMUTE_COUNT_EVERY-th block of PERMUTE_COUNT_BLOCK, from the first
+    (the last one read may be partial)."""
+    full, rest = divmod(n, PERMUTE_COUNT_BLOCK * PERMUTE_COUNT_EVERY)
+    return full * PERMUTE_COUNT_BLOCK + min(PERMUTE_COUNT_BLOCK, rest)
+
+
+def permute_sectors_plain(perm):
+    """Plain PyTorch version of the permute kernel's count pass: of the
+    outputs it reads (permute_sampled), those that start a 32-byte sector
+    of a float32 column in the gather path, the first of every 32 (a
+    warp's first lane) and those whose source lies in another sector than
+    the previous output's."""
     n = perm.shape[0]
+    i = torch.arange(n, device=perm.device)
+    j = perm.to(torch.int64)
+    fresh = (i % 32 == 0) | (j >> 3 != torch.roll(j, 1) >> 3)
+    read = i // PERMUTE_COUNT_BLOCK % PERMUTE_COUNT_EVERY == 0
+    return int((fresh & read).sum())
+
+
+def _require_perm_cuda(perm):
     if not (perm.is_cuda and perm.dtype == torch.int64
             and perm.is_contiguous()):
         raise ValueError("permute_cols perm: expected a contiguous int64 "
                          f"CUDA tensor, got {perm.dtype} on {perm.device}")
+
+
+def permute_sectors(perm):
+    """The count pass over ``perm`` (see permute_sectors_plain): one
+    kernel launch and one read back of its counter for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if not perm.is_cuda:
+        return permute_sectors_plain(perm)
+    _require_perm_cuda(perm)
+    out = torch.zeros(1, dtype=torch.int64, device=perm.device)
+    with torch.cuda.device(perm.device):
+        code = _cuda.load().permute_count(
+            perm.data_ptr(), perm.shape[0], out.data_ptr(),
+            _cuda.current_stream(perm.device))
+    _cuda.check(code, "permute_count")
+    _cuda.launch_counts["permute_count"] += 1
+    return int(out)
+
+
+def permute_plan(perm):
+    """The permute kernel's path for ``perm``, from one count pass:
+    ``"rows"`` when more than every second output it reads starts a
+    sector of a float32 column (permute_sectors), so that a gather of the
+    flagship's ten columns would read more than 5 random sectors a parcel
+    against the row path's 2; else ``"gather"``."""
+    sampled = permute_sampled(perm.shape[0])
+    return "rows" if 2 * permute_sectors(perm) > sampled else "gather"
+
+
+def permute_row_words(ncols32, has64):
+    """32-bit words of a row of the permute kernel's row path: the float64
+    column's 2 and one a float32 column, rounded up to 16 bytes."""
+    return (ncols32 + (2 if has64 else 0) + 3) // 4 * 4
+
+
+def _permute_cuda(cols32, perm, col64, plan):
+    n = perm.shape[0]
+    _require_perm_cuda(perm)
     if len(cols32) > PERMUTE_MAX_COLS:
         raise ValueError(f"permute_cols: {len(cols32)} float32 columns, "
                          f"at most {PERMUTE_MAX_COLS} per launch")
@@ -175,11 +239,19 @@ def _permute_cuda(cols32, perm, col64):
                          f"float64 CUDA tensor of shape ({n},)")
     lib = _cuda.load()
     dev = perm.device
-    out32 = torch.empty((len(cols32), n), dtype=torch.float32,
-                        device=dev)
+    k = len(cols32)
+    out32 = torch.empty((k, n), dtype=torch.float32, device=dev)
     out64 = (torch.empty(n, dtype=torch.float64, device=dev)
              if col64 is not None else None)
-    k = len(cols32)
+    if n == 0 or (k == 0 and col64 is None):
+        return out32, out64
+    if plan is None:
+        plan = permute_plan(perm)
+    rw, rows = 0, None
+    if plan == "rows":
+        rw = permute_row_words(k, col64 is not None)
+        # scratch of the row path, freed when the sort's kernels are done
+        rows = torch.empty(n * rw, dtype=torch.float32, device=dev)
     arr = ctypes.c_void_p * max(k, 1)
     src = arr(*[c.data_ptr() for c in cols32])
     dst = arr(*[out32[j].data_ptr() for j in range(k)])
@@ -188,22 +260,32 @@ def _permute_cuda(cols32, perm, col64):
             src, dst, k,
             col64.data_ptr() if col64 is not None else None,
             out64.data_ptr() if out64 is not None else None,
-            perm.data_ptr(), n, _cuda.current_stream(dev))
+            perm.data_ptr(), n, 1 if plan == "rows" else 0, rw,
+            rows.data_ptr() if rows is not None else None,
+            _cuda.current_stream(dev))
     _cuda.check(code, "permute_cols")
-    _cuda.launch_counts["permute_cols"] += 1
+    for kernel in (("permute_pack", "permute_rows") if plan == "rows"
+                   else ("permute_gather",)):
+        _cuda.launch_counts[kernel] += 1
     return out32, out64
 
 
 def permute_cols(cols32: Sequence[torch.Tensor], perm,
-                 col64: Optional[torch.Tensor] = None):
-    """``(stack(cols32)[:, perm], col64[perm])`` in one launch.
+                 col64: Optional[torch.Tensor] = None, *, plan=None):
+    """``(stack(cols32)[:, perm], col64[perm])``.
 
     cols32: float32 [n] columns; col64: an optional float64 [n] column
     (the parcel time); perm: int64 [n].  Exact for any permutation.
     Returns the permuted float32 columns as one [k, n] tensor and the
-    permuted float64 column (or None)."""
+    permuted float64 column (or None).  ``plan``, ``"rows"`` or
+    ``"gather"``, is the kernel's path; on the card, when it is None, a
+    count pass and one read back of its counter pick it (permute_plan).
+    A caller that permutes several groups of columns by one ``perm``
+    plans once and passes the plan to each call."""
+    if plan not in (None, "rows", "gather"):
+        raise ValueError(f"permute_cols: unknown plan {plan!r}")
     if perm.is_cuda:
-        return _permute_cuda(list(cols32), perm, col64)
+        return _permute_cuda(list(cols32), perm, col64, plan)
     return permute_cols_plain(cols32, perm, col64)
 
 

@@ -5,7 +5,7 @@ so that neighbouring parcels gather from neighbouring met cells.
 Counterpart of the JAX package's ``ops/sort.py:27-147``.  The key is
 level-major like the fused kernel's table, the argsort is
 ``torch.sort(stable=True)``, and every state column goes through the
-permute kernel (ops.slab_interp.permute_cols) in one launch, which is
+permute kernel (ops.slab_interp.permute_cols) in one call, which is
 exact for any permutation, so there is no bandedness guard here.
 """
 
@@ -15,7 +15,7 @@ import torch
 
 from mptrac_tpu_torch.ops import interp
 from mptrac_tpu_torch.ops.slab_interp import (PERMUTE_MAX_COLS,
-                                              permute_cols)
+                                              permute_cols, permute_plan)
 from mptrac_tpu_torch.types import Atm, Cache, Met, grid_axes
 
 _I32_MAX = 2 ** 31 - 1
@@ -57,13 +57,17 @@ def module_sort(met: Met, atm: Atm, cache: Cache):
             f"module_sort: {len(cols) + len(packed)} float32 columns, "
             f"the permute kernel takes {PERMUTE_MAX_COLS} per launch")
     cols += [v.contiguous() for _, v in packed]
-    out, time2 = permute_cols(cols, perm, atm.time.contiguous())
+    # one count pass plans the float32 columns' path for this sort
+    plan = permute_plan(perm) if perm.is_cuda else None
+    out, time2 = permute_cols(cols, perm, atm.time.contiguous(), plan=plan)
     res = {name: o for (name, _), o in zip(packed, out[3:])}
     # float64 columns (f64 compute mode) go through the kernel's
-    # float64 slot, one launch each
+    # float64 slot, one call each, on the gather path: a lone column's
+    # row would be one sector a parcel, as its gather is
     for name, v in slots:
         if name not in res:
-            res[name] = permute_cols([], perm, v.contiguous())[1]
+            res[name] = permute_cols([], perm, v.contiguous(),
+                                     plan="gather")[1]
     atm2 = atm.replace(
         time=time2, lon=res["lon"], lat=res["lat"], p=res["p"],
         q={k: res[("q", k)] for k in atm.q})

@@ -6,6 +6,8 @@ skip elsewhere; run them with
 
 (``python3 chip_smoke.py`` makes the same comparisons at full size.)"""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -217,3 +219,255 @@ def test_run_trac_card_against_cpu(gpu, tmp_path, mode, fast):
     assert float((a.lat.cpu() - b.lat).abs().max()) <= tols[0]
     assert float((a.p.cpu() - b.p).abs().max()) <= tols[1]
     assert sims["cuda"].cache.rng_ctr == sims["cpu"].cache.rng_ctr
+
+
+# ------------------------------------------------- K1 on other grids
+
+#: K1 against rk_plain (see test_rk_kernel_matches_plain): lon, lat, p,
+#: the three sigmas, T
+TOL_RK = [3.1e-5, 3.1e-5, 1.3e-4, 1e-5, 1e-5, 1e-5, 3.1e-5]
+#: beyond this |start latitude| the longitude is held to TOL_RK[0] as a
+#: distance along the parallel (degrees times the cosine of the start
+#: latitude, which the zonal step divides by in the Euler and RK4 schemes
+#: and the midpoint's lies a half step from): a zonal step grows as
+#: 1 / cos(lat), and a rounding of the wind or of the latitude is
+#: magnified with it in longitude but not in distance.  The parent's
+#: kernel shows the same differences (perf/rk_errors.py by latitude band)
+POLAR_LAT = 80.0
+
+
+def _rk_met(kind):
+    """A stacked pair of the synthetic wind (tilted axis, a vertical
+    wind, T rising with height) on a small grid, with its axes turned or
+    made irregular: "p_desc" (the synthetic levels), "p_asc",
+    "lat_desc" (descending and irregular), "lat_irregular", "cartesian"."""
+    import dataclasses
+
+    from mptrac_tpu_torch.met.synthetic import make_wind_met
+    from mptrac_tpu_torch.types import stack_met
+    snaps = [make_wind_met(t, nx=36, ny=19, nz=8, alpha=30.0, w0=0.1,
+                           temp0=200.0, temp1=290.0 + t / 3600.0,
+                           device="cuda") for t in (0.0, 3600.0)]
+    met = stack_met(*snaps)
+    f3 = met.fields3d
+    if kind == "p_asc":
+        met = dataclasses.replace(
+            met, p=met.p.flip(-1), fields3d={k: v.flip(-1)
+                                             for k, v in f3.items()})
+    elif kind in ("lat_desc", "lat_irregular"):
+        lat = met.lat.clone()
+        lat[:, 1:-1] += 0.37 * torch.sin(torch.arange(
+            lat.shape[1] - 2, device="cuda", dtype=lat.dtype))
+        if kind == "lat_desc":
+            lat, f3 = lat.flip(-1), {k: v.flip(2) for k, v in f3.items()}
+        met = dataclasses.replace(met, lat=lat, reg_lat=False, fields3d=f3)
+    elif kind == "cartesian":
+        met = dataclasses.replace(met, coord_type=1)
+    return met
+
+
+def _rk_parcels(pack, n, gen):
+    """n random parcels in and around the grid with dt 180 s, then parcels
+    with dt 0 (all stages locate at the start): on every node of each
+    axis, past both ends of each axis, and NaN in lon, lat or p."""
+    lon_ax = pack.lon0 + pack.dlon * torch.arange(
+        pack.nx, device="cuda", dtype=torch.float32)
+    lat_ax, p_ax = pack.lat_axis, pack.p_axis
+    lo_p, hi_p = float(p_ax.min()), float(p_ax.max())
+
+    def u(lo, hi, k):
+        return lo + (hi - lo) * torch.rand(k, device="cuda", generator=gen)
+
+    lon = [u(-20.0, 380.0, n)]
+    lat = [u(pack.lat_lo, pack.lat_hi, n)]
+    p = [u(lo_p, hi_p, n)]
+    dt = [torch.full((n,), 180.0, device="cuda")]
+    mid_lon = float(lon_ax[pack.nx // 2])
+    mid_lat, mid_p = float(lat_ax[pack.ny // 2]), float(p_ax[pack.npl // 2])
+    edge = ([(x, mid_lat, mid_p) for x in lon_ax.tolist()]
+            + [(mid_lon, y, mid_p) for y in lat_ax.tolist()]
+            + [(mid_lon, mid_lat, z) for z in p_ax.tolist()]
+            + [(x, mid_lat, mid_p) for x in (-400.0, 725.0, pack.lon0 - 1.0,
+                                             pack.lon_last + 1.0)]
+            + [(mid_lon, y, mid_p) for y in (pack.lat_lo - 5.0,
+                                             pack.lat_hi + 5.0)]
+            + [(mid_lon, mid_lat, z) for z in (0.5 * lo_p, 1.5 * hi_p)]
+            + [(float("nan"), mid_lat, mid_p), (mid_lon, float("nan"), mid_p),
+               (mid_lon, mid_lat, float("nan"))])
+    e = torch.tensor(edge, device="cuda", dtype=torch.float32)
+    lon.append(e[:, 0])
+    lat.append(e[:, 1])
+    p.append(e[:, 2])
+    dt.append(torch.zeros(len(edge), device="cuda"))
+    k = n + len(edge)
+    wt0 = torch.rand(k, device="cuda", generator=gen)
+    return tuple(torch.cat(x).contiguous() for x in (lon, lat, p, dt)) + (
+        wt0,)
+
+
+def _assert_rk_matches_plain(pack, nstage, args):
+    """Positions and T within TOL_RK (NaN where the plain version has
+    NaN), the longitude of parcels that start past POLAR_LAT as a
+    distance; sigma within its tolerance where both sides end in the same
+    cell, and at most one parcel a thousand in another cell."""
+    got = torch.stack(rk_fused.advect_all(pack, nstage, *args)[0])
+    exp = torch.stack(rk_fused.rk_plain(pack, nstage, *args))
+    same = (rk_fused.locate_plain(pack, got[0], got[1], got[2])[0]
+            == rk_fused.locate_plain(pack, exp[0], exp[1], exp[2])[0])
+    assert int((~same).sum()) <= got.shape[1] // 1000
+    for r, tol in enumerate(TOL_RK):
+        g, e = (got[r], exp[r]) if r not in (3, 4, 5) else (got[r][same],
+                                                            exp[r][same])
+        assert torch.equal(torch.isnan(g), torch.isnan(e)), r
+        d = (g - e).abs()
+        if r == 0 and not pack.cartesian:
+            d = d * torch.where(args[1].abs() > POLAR_LAT, torch.cos(
+                args[1] * (math.pi / 180.0)).abs(), torch.ones_like(d))
+        ok = ~torch.isnan(e)
+        assert float(d[ok].max()) <= tol, r
+
+
+@pytest.mark.parametrize("kind", ["p_desc", "p_asc", "lat_desc",
+                                  "lat_irregular", "cartesian"])
+def test_rk_kernel_matches_plain_on_other_axes(gpu, kind):
+    """K1's binary-search locate against the plain compare-count on
+    ascending and descending pressure and latitude axes, an irregular
+    latitude axis and a Cartesian grid, for parcels inside, on every node,
+    past both ends and NaN, with all three schemes."""
+    pack = rk_fused.build_cell_pack(_rk_met(kind))
+    assert pack.p_asc == (kind == "p_asc")
+    assert pack.lat_asc == (kind != "lat_desc")
+    assert pack.lat_reg == (kind not in ("lat_desc", "lat_irregular"))
+    assert pack.cartesian == (kind == "cartesian")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = _rk_parcels(pack, 20_000, gen)
+    if kind == "cartesian":
+        # metres added to the axis unit: keep the parcels on the grid
+        args = args[:3] + (args[3] * (1.0 / 360.0),) + args[4:]
+    for nstage in (1, 2, 4):
+        _assert_rk_matches_plain(pack, nstage, args)
+
+
+def test_rk_kernel_matches_plain_unsorted(card):
+    """The flagship's parcels in a random order: each thread reads its
+    own corners, so the order changes no value."""
+    ctl, met01, atm, cache, pack = card
+    wt0 = interp.time_weight(met01, atm.time).to(torch.float32)
+    perm = torch.randperm(atm.npmax, device="cuda")
+    args = tuple(x[perm].contiguous()
+                 for x in (atm.lon, atm.lat, atm.p, cache.dt, wt0))
+    _assert_rk_matches_plain(pack.cell, 2, args)
+    got = rk_fused.advect_all(pack.cell, 2, *args)[0]
+    ref = rk_fused.advect_all(pack.cell, 2, atm.lon, atm.lat, atm.p,
+                              cache.dt, wt0)[0]
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r[perm])
+
+
+def test_rk_kernel_attributes(card):
+    """Registers, local memory and resident blocks of every scheme's
+    kernel are readable on the card."""
+    for nstage in (1, 2, 4):
+        a = rk_fused.kernel_attributes(card[4].cell, nstage)
+        assert 0 < a["registers"] <= 255 and a["blocks_per_sm"] >= 1
+
+
+# ------------------------------------------------- K3 on each path
+
+#: the two paths forced, and the plan's own choice
+K3_PLANS = ["rows", "gather", None]
+#: outputs of a block of the permute kernel's launches
+K3_BLOCK = 256
+
+
+def _k3_perm(kind, n, gen):
+    if kind == "identity":
+        return torch.arange(n, device="cuda")
+    if kind == "random":
+        return torch.randperm(n, device="cuda", generator=gen)
+    if kind == "banded":
+        key = torch.div(torch.arange(n, device="cuda"), 4096,
+                        rounding_mode="floor").double()
+        return torch.sort(key + torch.rand(
+            n, device="cuda", dtype=torch.float64, generator=gen)).indices
+    if kind == "drifted":
+        # a stable re-sort after 60 % of the parcels moved 181 cells of
+        # 25 parcels on (see test_torch_slab._perm_of_kind)
+        key = torch.div(torch.arange(n, device="cuda"), 25,
+                        rounding_mode="floor") + 181 * (torch.rand(
+                            n, device="cuda", generator=gen) < 0.6)
+        return torch.sort(key, stable=True).indices
+    # far movers at block edges: the first and last output of every block
+    # take their sources from half the state away
+    at = torch.arange(0, n, K3_BLOCK, device="cuda")
+    at = torch.unique(torch.cat([at, torch.clamp(at + K3_BLOCK - 1,
+                                                 max=n - 1)]))
+    perm = torch.arange(n, device="cuda")
+    perm[at] = at.roll(len(at) // 2)
+    return perm
+
+
+def _k3_columns(n, ncols, with64, gen):
+    """float32 columns that start off 16-byte alignment (views at an
+    offset of one element) and a float64 column."""
+    base = torch.rand((ncols, n + 1), device="cuda", generator=gen)
+    cols = [base[c, 1:] for c in range(ncols)]
+    col64 = (torch.rand(n, device="cuda", dtype=torch.float64,
+                        generator=gen) * 1e5 if with64 else None)
+    return cols, col64
+
+
+def _assert_k3_exact(cols, perm, col64, plan):
+    got32, got64 = slab_interp.permute_cols(cols, perm, col64, plan=plan)
+    exp32, exp64 = slab_interp.permute_cols_plain(cols, perm, col64)
+    assert torch.equal(got32, exp32)
+    assert (got64 is None and exp64 is None) or torch.equal(got64, exp64)
+
+
+@pytest.mark.parametrize("kind", ["identity", "random", "banded",
+                                  "drifted", "edge_movers"])
+@pytest.mark.parametrize("plan", K3_PLANS)
+def test_permute_kernel_bit_exact_on_each_path(gpu, kind, plan):
+    """Both paths of K3, forced and as planned, equal the plain gather bit
+    for bit on every permutation, with n no multiple of a block."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n = 137 * K3_BLOCK + 77
+    cols, col64 = _k3_columns(n, 9, True, gen)
+    _assert_k3_exact(cols, _k3_perm(kind, n, gen), col64, plan)
+
+
+@pytest.mark.parametrize("ncols", [0, 1, 9, 32])
+@pytest.mark.parametrize("with64", [False, True])
+def test_permute_kernel_bit_exact_column_counts(gpu, ncols, with64):
+    """0, 1, 9 and 32 float32 columns, with and without the float64
+    column, on each path, at n = 1 and at n no multiple of a block."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for n in (1, 3 * K3_BLOCK + 5):
+        cols, col64 = _k3_columns(n, ncols, with64, gen)
+        for kind in ("random", "banded"):
+            perm = _k3_perm(kind, n, gen)
+            for plan in K3_PLANS:
+                _assert_k3_exact(cols, perm, col64, plan)
+
+
+def test_permute_count_matches_plain(gpu):
+    """The count pass on the card equals its plain version; a random or
+    banded permutation plans the row path, the identity and a drifted
+    re-sort the gather path; each launch is counted for its kernel."""
+    from mptrac_tpu_torch.ops import _cuda
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n = 1_000_003
+    want = {"random": "rows", "banded": "rows", "identity": "gather",
+            "drifted": "gather", "edge_movers": "gather"}
+    keys = ("permute_count", "permute_gather", "permute_pack",
+            "permute_rows")
+    for kind, path in want.items():
+        perm = _k3_perm(kind, n, gen)
+        before = [_cuda.launch_counts[k] for k in keys]
+        assert (slab_interp.permute_sectors(perm)
+                == slab_interp.permute_sectors_plain(perm.cpu()))
+        assert slab_interp.permute_plan(perm) == path, kind
+        slab_interp.permute_cols([perm.float()], perm)
+        counts = [_cuda.launch_counts[k] - b for k, b in zip(keys, before)]
+        assert counts == ([3, 0, 1, 1] if path == "rows"
+                          else [3, 1, 0, 0]), kind

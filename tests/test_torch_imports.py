@@ -28,7 +28,8 @@ def test_port_imports_no_jax():
     for name in ("sim", "timeutil", "climatology", "io.hdf5", "io.atm_io",
                  "io.output", "met.read_nc", "met.process", "met.cape",
                  "met.build", "met.write_nc", "physics.chem",
-                 "utils.timers", "tools._cli", "tools.trac", "perf.probe"):
+                 "utils.timers", "tools._cli", "tools.trac", "perf.probe",
+                 "perf.rk_errors"):
         assert "mptrac_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -121,6 +121,58 @@ def test_permute_cols_plain_bit_exact(ncols, with64):
         assert out64 is None
 
 
+def _perm_of_kind(kind, n, rng):
+    if kind == "identity":
+        return np.arange(n)
+    if kind == "random":
+        return rng.permutation(n)
+    if kind == "drifted":
+        # a re-sort: cells of 25 parcels in the sorted order, 60 % of the
+        # parcels drift into the cell 181 further on (the next longitude
+        # column of a level-major key), argsorted stably
+        key = np.arange(n) // 25 + 181 * (rng.uniform(0.0, 1.0, n) < 0.6)
+        return np.argsort(key, kind="stable")
+    # blocks of 4096 shuffled within themselves
+    return np.argsort(np.arange(n) // 4096 + rng.uniform(0.0, 1.0, n),
+                      kind="stable")
+
+
+@pytest.mark.parametrize("kind,plan", [("random", "rows"),
+                                       ("banded", "rows"),
+                                       ("identity", "gather"),
+                                       ("drifted", "gather")])
+def test_permute_plan_picks_the_path(kind, plan):
+    """The K3 path from the count pass: where nearly every output starts a
+    sector of its own (a random order, blocks of 4096 shuffled) the row
+    path; where outputs come in runs of neighbouring sources (the
+    identity, a stable re-sort of drifted parcels) the gather path."""
+    rng = np.random.default_rng(11)
+    n = 1_000_000
+    perm = torch.from_numpy(_perm_of_kind(kind, n, rng))
+    assert tsl.permute_plan(perm) == plan
+
+
+def test_permute_sectors_by_definition():
+    """The count pass's plain version against the definition, output by
+    output, on a permutation whose last block read is partial: of every
+    8th block of 256 outputs, the first of every 32 outputs and each
+    whose source lies in another 8-value sector than the previous
+    output's."""
+    rng = np.random.default_rng(12)
+    every = tsl.PERMUTE_COUNT_BLOCK * tsl.PERMUTE_COUNT_EVERY
+    n = 5 * every + 100
+    assert tsl.permute_sampled(n) == 5 * tsl.PERMUTE_COUNT_BLOCK + 100
+    perm = _perm_of_kind("drifted", n, rng)
+    perm[::97] = perm[::97][::-1]          # far movers
+    want = sum(i % every < tsl.PERMUTE_COUNT_BLOCK
+               and (i % 32 == 0 or j // 8 != perm[i - 1] // 8)
+               for i, j in enumerate(perm.tolist()))
+    assert tsl.permute_sectors(torch.from_numpy(perm)) == want
+    # the identity: one sector every 8 outputs read
+    assert tsl.permute_sectors(torch.arange(n)) == (
+        tsl.permute_sampled(n) + 7) // 8
+
+
 def test_permute_matches_jax_permute_f32_cols():
     """The JAX banded permute kernel (interpret mode) on a banded
     permutation: same columns out, bit for bit."""

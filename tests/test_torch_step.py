@@ -670,6 +670,67 @@ def test_build_pack_follows_tpu_fast(runs):
     np.testing.assert_array_equal(p1.packT.numpy(), p2.cell.table.numpy())
 
 
+def _small_pair():
+    return flagship.make_setup(16, nx=12, ny=7, nz=5, device="cpu")[2]
+
+
+@pytest.mark.parametrize("axis", ["lat", "p"])
+@pytest.mark.parametrize("flip", [False, True])
+def test_build_cell_pack_accepts_monotonic_axes(axis, flip):
+    """An ascending and a descending latitude or pressure axis: the pack
+    records the direction that the kernel's binary search reads."""
+    import dataclasses
+
+    from mptrac_tpu_torch.ops import rk_fused
+    met = _small_pair()
+    ax = getattr(met, axis)
+    if flip:
+        met = dataclasses.replace(met, **{axis: ax.flip(-1)})
+    pack = rk_fused.build_cell_pack(met)
+    up = bool(getattr(met, axis)[0, 1] > getattr(met, axis)[0, 0])
+    assert (pack.lat_asc if axis == "lat" else pack.p_asc) == up
+
+
+@pytest.mark.parametrize("axis,name", [("lat", "latitude"),
+                                       ("p", "pressure")])
+@pytest.mark.parametrize("fault", ["repeat", "turn", "nan"])
+def test_build_cell_pack_raises_on_a_non_monotonic_axis(axis, name, fault):
+    """The kernel's binary search equals the JAX compare-count only on a
+    strictly monotonic axis: any other axis is refused by name (a
+    deliberate difference from the JAX package, ROADMAP section 3)."""
+    import dataclasses
+
+    from mptrac_tpu_torch.ops import rk_fused
+    met = _small_pair()
+    ax = getattr(met, axis).clone()
+    if fault == "repeat":
+        ax[:, 2] = ax[:, 1]
+    elif fault == "turn":
+        ax[:, [1, 2]] = ax[:, [2, 1]]
+    else:
+        ax[:, 3] = float("nan")
+    with pytest.raises(ValueError, match=f"{name} axis .* not strictly "
+                       "monotonic"):
+        rk_fused.build_cell_pack(dataclasses.replace(met, **{axis: ax}))
+
+
+def test_rk_errors_by_latitude_band_on_the_cpu(capsys):
+    """perf/rk_errors on the CPU: both sides are the plain version, so
+    every band holds parcels and every difference is 0."""
+    import json
+
+    from mptrac_tpu_torch.perf import rk_errors
+    assert rk_errors.main(["--n", "500", "--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["nstage"] for x in lines] == [1, 2, 4]
+    for x in lines:
+        assert set(x["bands"]) == {f"{lo:g}-{hi:g}"
+                                   for lo, hi in rk_errors.BANDS}
+        for band in x["bands"].values():
+            assert band.pop("parcels") > 0
+            assert set(band.values()) == {0.0}
+
+
 def test_pack_is_ignored_in_float64():
     """The kernels compute in float32: with a float64 state a pack is
     left aside and the exact path runs (as in the JAX pipeline)."""
