@@ -32,9 +32,11 @@ non-zero code and prints no result.  Phases, each of which must pass:
    against the plain count;
 5. unfused path: the same configuration on the unfused kernels
    (``TPU_FAST 1``: one interpolation launch per RK node, the sigma
-   kernel after the turbulent displacement, the meteo sampling of
+   gather after the turbulent displacement from the table of every
+   cell's sigma built once per met pair, the meteo sampling of
    t, u, v, w, theta, ps), driven and counted the same way;
-6. kernels of the unfused path (K4, K5) on its own tensors, and the two
+6. kernels of the unfused path (K4, K5's table and gather, the gather
+   also in a random parcel order) on its own tensors, and the two
    ``ops`` kernels on other table layouts (K6, K7), which no module
    reaches: those are driven once through their public functions with
    the counts zeroed before and read after, then compared and timed
@@ -62,7 +64,8 @@ non-zero code and prints no result.  Phases, each of which must pass:
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-The ``{"kernels": [...]}`` line lists K1-K7 and P1-P3.
+The ``{"kernels": [...]}`` line lists K1-K7 (K5 as its gather and its
+table build) and P1-P3.
 
 N is fixed at 100,663,296 parcels (100M rounded up to a multiple of
 2^21, the size the JAX benchmark uses).  ``--np`` and ``--steps`` exist
@@ -334,17 +337,18 @@ def phase_main_path(torch, n, steps, profile):
 
 def phase_unfused_path(torch, n, steps, profile):
     """The unfused path: per step K4 once per RK node and once in the
-    meteo sampling, K5 once, K2 for the turbulent diffusion and for the
-    sampled surface pressure."""
+    meteo sampling, K5's gather once (its table once per met pair), K2
+    for the turbulent diffusion and for the sampled surface pressure."""
     qnt = ("NQ", str(len(UNFUSED_QNT)))
     for k, name in enumerate(UNFUSED_QNT):
         qnt += (f"QNT_NAME[{k}]", name)
     sim, counts, stats = drive_flagship(torch, "unfused", n, steps, profile,
                                         ("TPU_FAST", "1") + qnt)
     total = WARMUP_STEPS + steps
+    # K5: its table once (one met pair, a FixedMet), its gather a step
     want = {"uvwt_interp": (sim.ctl.advect + 1) * total,
-            "meso_sigma": total, "sfc_interp": 2 * total,
-            "rk_fused_advect": 0}
+            "meso_sigma_table": 1, "meso_sigma": total,
+            "sfc_interp": 2 * total, "rk_fused_advect": 0}
     for name, k in want.items():
         if counts[name] != k:
             raise RuntimeError(f"unfused path: {name} launched "
@@ -801,27 +805,68 @@ def phase_kernels_unfused(torch, sim, counts):
         ms4, plain4, n * 36 + tbytes, n * 180, 36, [tol_uvw, tol_t],
         ms_random_order=ms4_r))
 
-    # ---- K5 on the path's table (the cancelling case) and the random one
-    err5, plain5 = 0.0, 0.0
+    # ---- K5: the table of every cell's sigma (once per met pair) and the
+    # gather from it, on the path's table (the cancelling case) and on the
+    # random one, in the path's order and in a random order; bit for bit
+    # against the plain versions
+    sigT_path = sim.pack.sigT
+    ncell = npl * nx * ny
+    perm = torch.randperm(n, device="cuda", generator=gen)
+    cell_r = cell[perm]
+    plain5, plain5t = 0.0, 0.0
     for tag, tab in (("path", table), ("random", rtable)):
-        got = slab_interp.meso_sigma(tab, cell)
+        t0 = time.time()
+        plainT = slab_interp.sigma_table_plain(tab)
+        torch.cuda.synchronize()
+        plain5t = 1e3 * (time.time() - t0)
+        sigT = slab_interp.sigma_table(tab)
+        if not bool(torch.equal(sigT, plainT)):
+            raise RuntimeError(f"K5 table kernel ({tag} table) differs from "
+                               "sigma_table_plain")
+        if tag == "path" and not bool(torch.equal(sigT, sigT_path)):
+            raise RuntimeError("K5: the path's table differs from a table "
+                               "built again")
         exp, plain5 = timed_plain(
             lambda c: slab_interp.meso_sigma_plain(tab, c), (cell,))
-        err5 = max(err5, check(f"K5 ({tag} table)", got, exp,
-                               [tol_sig] * 3))
+        got = slab_interp.meso_sigma(tab, cell, sigT)
+        if not bool(torch.equal(got, exp)):
+            raise RuntimeError(f"K5 gather ({tag} table) differs from "
+                               "meso_sigma_plain")
+        if not bool(torch.equal(slab_interp.meso_sigma(tab, cell_r, sigT),
+                                exp[:, perm])):
+            raise RuntimeError(f"K5 gather ({tag} table): a random parcel "
+                               "order changes the values")
         if tag == "path":
             sig_path = got
             sig_max = float(got.max())
-        del exp
+        del exp, plainT, got, sigT
     if not 0.0 < sig_max < 10.0:
         raise RuntimeError(f"K5: largest sigma {sig_max} on the flagship's "
                            "wind is not a subgrid standard deviation")
-    ms5 = time_ms(lambda: slab_interp.meso_sigma(table, cell), torch)
+    ms5 = time_ms(lambda: slab_interp.meso_sigma(table, cell, sigT_path),
+                  torch)
+    ms5_r = time_ms(lambda: slab_interp.meso_sigma(table, cell_r, sigT_path),
+                    torch)
+    ms5t = time_ms(lambda: slab_interp.sigma_table(table), torch)
+    del cell_r, perm
+    sig_bytes = sigT_path.numel() * 4
+    # the gather: 4 B of cell in, 12 B out a parcel, the sigma table once;
+    # no arithmetic
     kernels.append(entry(
         "meso_sigma", "mptrac_tpu_torch/csrc/meso_sigma.cu",
-        "mptrac_tpu/ops/slab_interp.py:303", counts["meso_sigma"], err5,
-        ms5, plain5, n * 16 + tbytes, n * 159, 16, tol_sig,
-        sigma_max=sig_max))
+        "mptrac_tpu/ops/slab_interp.py:303", counts["meso_sigma"], 0.0,
+        ms5, plain5, n * 16 + sig_bytes, 0, 16, 0.0, sigma_max=sig_max,
+        layout="rows [ncell, 4]", scratch_bytes=sig_bytes,
+        ms_random_order=ms5_r, ms_table_build=ms5t,
+        launches_by_kernel={k: counts[k] for k in ("meso_sigma_table",
+                                                    "meso_sigma")}))
+    # the table: the wind table read once, the sigma table written once,
+    # 159 operations a cell
+    kernels.append(entry(
+        "meso_sigma_table", "mptrac_tpu_torch/csrc/meso_sigma.cu",
+        "mptrac_tpu/ops/slab_interp.py:303", counts["meso_sigma_table"],
+        0.0, ms5t, plain5t, tbytes + sig_bytes, ncell * 159, None, 0.0,
+        n_cells=ncell))
     del rtable
 
     # ---- K6, K7: no module reaches them.  Their path is their public

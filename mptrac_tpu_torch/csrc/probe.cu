@@ -19,9 +19,17 @@
 //      here a thread gathers its own column and every parcel is served.
 //   P2 streams 8 bytes an element.  What it shows is not the stream but the
 //      cost of a block: the same bytes in nchunk blocks of [8, G*128], the
-//      card's counterpart of a TPU grid step.
+//      card's counterpart of a TPU grid step.  A large tile (G 32, 64) holds
+//      its block's slot for long, and its 8 rows lie ncol apart: 8 streams
+//      where a contiguous range is one.  Blocks of 1024 threads, the most a
+//      block holds, keep a tile short: G 64 then costs under 1 % more than
+//      G 8, where blocks of 256 cost 2 % more.  More float4s in flight a
+//      thread, a loop without the division and evict-first hints gave no
+//      more (PERF.md section 5).
 //   P3 reads 4 bytes and writes 32 bytes an index.  The table (4 KB) sits in
 //      shared memory, so the gather itself costs no device memory traffic.
+
+#include <cstdint>
 
 #include "interp_common.cuh"
 
@@ -30,6 +38,7 @@ namespace {
 constexpr int LANES = 64;        // rows of the transposed table
 constexpr int SMALL_ROWS = 8;    // rows of the small table
 constexpr int SMALL_COLS = 128;  // its columns
+constexpr int GRID_BLOCK = 1024; // most threads of a P2 block
 
 // out [8, n]: rows 0-2 (u, v, w), 3 T, 4 the served flag (1.0), 5-7 zero.
 // The arithmetic is perf/probe.py:_trilerp_T, which is trilerp_time() of
@@ -66,7 +75,7 @@ __global__ void __launch_bounds__(256) probe_lane_kernel(
 
 // Block c doubles the tile [8, cp] at columns c*cp of x [8, ncol]; cp is a
 // multiple of 128, so every row of a tile starts on a 16-byte boundary.
-__global__ void __launch_bounds__(256) probe_grid_kernel(
+__global__ void __launch_bounds__(GRID_BLOCK) probe_grid_kernel(
     const float* __restrict__ x, float* __restrict__ out, int cp,
     long long ncol) {
   const int cp4 = cp / 4;
@@ -115,13 +124,17 @@ extern "C" int probe_lane(const float* packT, const int* base, const float* w,
   return (int)cudaGetLastError();
 }
 
-// x, out [8, nchunk * cp] f32; cp a multiple of 128
+// x, out [8, nchunk * cp] f32, 16-byte aligned; cp a multiple of 128;
+// blocks of min(GRID_BLOCK, 2 * cp) threads (a tile holds 2 * cp float4s)
 extern "C" int probe_grid(const float* x, float* out, long long nchunk, int cp,
                           void* stream) {
   if (nchunk <= 0) return 0;
-  if (nchunk > 2147483647LL || cp <= 0 || cp % 128 != 0)
+  if (nchunk > 2147483647LL || cp <= 0 || cp % 128 != 0 ||
+      (reinterpret_cast<std::uintptr_t>(x) |
+       reinterpret_cast<std::uintptr_t>(out)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  probe_grid_kernel<<<dim3((unsigned)nchunk), 256, 0,
+  const int block = 2 * cp < GRID_BLOCK ? 2 * cp : GRID_BLOCK;
+  probe_grid_kernel<<<dim3((unsigned)nchunk), block, 0,
                       reinterpret_cast<cudaStream_t>(stream)>>>(
       x, out, cp, nchunk * cp);
   return (int)cudaGetLastError();

@@ -40,11 +40,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: launches per kernel since the last reset (a wrapper adds one where it
 #: launches the kernel and nowhere else); K3's wrapper permute_cols
 #: launches permute_gather, or permute_pack and permute_rows, and its
-#: plan launches permute_count
+#: plan launches permute_count; K5 is meso_sigma_table (once per met
+#: pair) and meso_sigma (the gather from that table)
 launch_counts = {"rk_fused_advect": 0, "sfc_interp": 0, "permute_gather": 0,
                  "permute_pack": 0, "permute_rows": 0, "permute_count": 0,
-                 "uvwt_interp": 0, "meso_sigma": 0, "lane_interp_uvwt": 0,
-                 "lane_meso_sigma": 0, "uvw_rows_interp": 0,
+                 "uvwt_interp": 0, "meso_sigma_table": 0, "meso_sigma": 0,
+                 "lane_interp_uvwt": 0, "lane_meso_sigma": 0,
+                 "uvw_rows_interp": 0,
                  "probe_lane": 0, "probe_grid": 0, "probe_small": 0}
 
 
@@ -154,8 +156,10 @@ def load() -> ctypes.CDLL:
     lib.permute_count.argtypes = [vp, i64, vp, vp]
     lib.uvwt_interp.restype = i32
     lib.uvwt_interp.argtypes = [vp] * 7 + [i64, i32, i32, i32, vp]
+    lib.meso_sigma_table.restype = i32
+    lib.meso_sigma_table.argtypes = [vp, vp, i32, i32, i32, vp]
     lib.meso_sigma.restype = i32
-    lib.meso_sigma.argtypes = [vp] * 3 + [i64, i32, i32, i32, vp]
+    lib.meso_sigma.argtypes = [vp] * 3 + [i64, vp]
     lib.lane_interp_uvwt.restype = i32
     lib.lane_interp_uvwt.argtypes = [vp] * 4 + [i64, vp]
     lib.lane_meso_sigma.restype = i32

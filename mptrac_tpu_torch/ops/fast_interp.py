@@ -28,7 +28,10 @@ class MetPack(NamedTuple):
       (ops.rk_fused.CellPack);
     - ``sfcT``: [nx, ny, 2, 16] surface table (ops.slab_interp);
     - ``packT``: [npl, nx, ny, 8] wind table of the unfused kernels
-      (ops.slab_interp.interp_uvwt, meso_sigma).
+      (ops.slab_interp.interp_uvwt, meso_sigma);
+    - ``sigT``: [ncell, 4] subgrid wind sigma of every cell of
+      ``packT`` (ops.slab_interp.sigma_table), which meso_sigma gathers
+      from.
 
     The names follow the JAX package's fields, the layouts are this
     package's.  Any entry may be None; modules then take the exact
@@ -37,18 +40,24 @@ class MetPack(NamedTuple):
     cell: Optional[rk_fused.CellPack] = None
     sfcT: Optional[torch.Tensor] = None
     packT: Optional[torch.Tensor] = None
+    sigT: Optional[torch.Tensor] = None
 
 
-def build_met_pack(met01: Met, cell: bool = True) -> MetPack:
+def build_met_pack(met01: Met, cell: bool = True,
+                   sigma: bool = True) -> MetPack:
     """Build the gather tables for a met pair (once per met interval).
 
     ``cell=True``: the fused-RK pack (reads the grid axes to the host,
     so call it outside the step) and the surface table.  ``cell=False``:
-    the wind table of the unfused kernels and the surface table."""
+    the wind table of the unfused kernels, the surface table and, with
+    ``sigma`` (the mesoscale diffusion is on), the sigma table of the
+    wind table."""
     sfcT = slab_interp.build_sfc_table(met01)
     if cell:
         return MetPack(cell=rk_fused.build_cell_pack(met01), sfcT=sfcT)
-    return MetPack(packT=rk_fused.build_cell_table(met01), sfcT=sfcT)
+    packT = rk_fused.build_cell_table(met01)
+    sigT = slab_interp.sigma_table(packT) if sigma else None
+    return MetPack(packT=packT, sfcT=sfcT, sigT=sigT)
 
 
 def _edge_padded(f: torch.Tensor) -> torch.Tensor:

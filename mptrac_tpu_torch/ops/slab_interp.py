@@ -15,7 +15,8 @@ Counterpart of the four modes of the JAX package's
   time interpolation of u, v, w and T, the interpolation of the unfused
   advection and of the meteo sampling;
 * ``meso_sigma`` (mode ``"meso"``): the 16-point subgrid wind sigma of
-  the unfused mesoscale diffusion.
+  the unfused mesoscale diffusion, as a table of every cell's sigma
+  (``sigma_table``, once per met pair) and a gather from it.
 
 The last two read the per-cell table of ``ops.rk_fused``
 (``build_cell_table``, ``[npl, nx, ny, 8]`` float32, level-major) and
@@ -358,34 +359,96 @@ def uvwt_from_loc(table, met01: Met, ts, loc):
     return tuple(out[k].to(dtype) for k in range(4))
 
 
+#: cells per pass of sigma_table_plain (bounds its temporaries)
+SIGMA_PLAIN_CHUNK = 1 << 20
+
+
+def _sigma_shape(table):
+    """[ncell, 4]: K5's sigma table of the per-cell table ``table``."""
+    return (table.shape[0] * table.shape[1] * table.shape[2], 4)
+
+
+def sigma_table_plain(table):
+    """Plain PyTorch version of the table kernel: [ncell, 4] f32, the
+    (su, sv, sw, 0) of every cell of ``table``, the cells in chunks of
+    SIGMA_PLAIN_CHUNK."""
+    ncell = _sigma_shape(table)[0]
+    out = torch.zeros(_sigma_shape(table), dtype=torch.float32,
+                      device=table.device)
+    for s in range(0, ncell, SIGMA_PLAIN_CHUNK):
+        cells = torch.arange(s, min(s + SIGMA_PLAIN_CHUNK, ncell),
+                             device=table.device)
+        out[s:s + cells.shape[0], :3] = torch.stack(rk_fused._plain_sigma16(
+            rk_fused._cell_corner_rows(table, cells)), dim=1)
+    return out
+
+
+def sigma_table(table):
+    """K5's table: the subgrid wind sigma of every cell of the per-cell
+    table [npl, nx, ny, 8] (the cell's 8 edge-clamped corners x 2
+    snapshots; it reads no weight, so it is a function of the cell and
+    the met pair alone), [ncell, 4] f32 rows (su, sv, sw, 0).  Build it
+    once per met pair; ``meso_sigma`` gathers from it."""
+    _require_cell_table("sigma_table", table)
+    if not table.is_cuda:
+        return sigma_table_plain(table)
+    npl, nx, ny = table.shape[:3]
+    _cuda.require_f32_cuda("meso_sigma_table table", table)
+    lib = _cuda.load()
+    sigT = torch.empty(_sigma_shape(table), dtype=torch.float32,
+                       device=table.device)
+    with torch.cuda.device(table.device):
+        code = lib.meso_sigma_table(table.data_ptr(), sigT.data_ptr(), nx,
+                                    ny, npl,
+                                    _cuda.current_stream(table.device))
+    _cuda.check(code, "meso_sigma_table")
+    _cuda.launch_counts["meso_sigma_table"] += 1
+    return sigT
+
+
 def meso_sigma_plain(table, cell):
-    """Plain PyTorch version of the sigma kernel: [3, n]."""
+    """Plain PyTorch version of the whole sigma function (the stencil of
+    each parcel's cell): [3, n]."""
     return torch.stack(rk_fused._plain_sigma16(
         rk_fused._cell_corner_rows(table, cell)))
 
 
-def _meso_cuda(table, cell):
+def meso_gather_plain(sigT, cell):
+    """Plain PyTorch version of the gather kernel: [3, n]."""
+    return sigT[cell.to(torch.int64), :3].T.contiguous()
+
+
+def _meso_cuda(cell, sigT):
     n = cell.shape[0]
-    npl, nx, ny = table.shape[:3]
-    _cuda.require_f32_cuda("meso_sigma table", table)
+    _cuda.require_f32_cuda("meso_sigma sigT", sigT)
     _cuda.require_i32_cuda("meso_sigma cell", cell, (n,))
     lib = _cuda.load()
-    out = torch.empty((3, n), dtype=torch.float32, device=table.device)
-    with torch.cuda.device(table.device):
-        code = lib.meso_sigma(
-            table.data_ptr(), cell.data_ptr(), out.data_ptr(), n, nx, ny,
-            npl, _cuda.current_stream(table.device))
+    out = torch.empty((3, n), dtype=torch.float32, device=sigT.device)
+    with torch.cuda.device(sigT.device):
+        code = lib.meso_sigma(sigT.data_ptr(), cell.data_ptr(),
+                              out.data_ptr(), n,
+                              _cuda.current_stream(sigT.device))
     _cuda.check(code, "meso_sigma")
     _cuda.launch_counts["meso_sigma"] += 1
     return out
 
 
-def meso_sigma(table, cell):
+def meso_sigma(table, cell, sigT=None):
     """Subgrid wind sigma (su, sv, sw) of each parcel's cell: standard
     deviation of u, v, w over the cell's 8 corners x 2 snapshots, summed
     in float32 in the reference's order (c:4280-4304).  Arguments as
-    ``interp_uvwt``; returns [3, n] f32."""
+    ``interp_uvwt``; ``sigT``, the table of ``sigma_table(table)``,
+    holds the sigma of every cell: given, the kernel gathers from it;
+    else it is built first (on the card; a CPU tensor takes the plain
+    stencil).  Returns [3, n] f32."""
     _require_cell_table("meso_sigma", table)
+    if sigT is not None and tuple(sigT.shape) != _sigma_shape(table):
+        raise ValueError(f"meso_sigma: expected a sigma table of shape "
+                         f"{_sigma_shape(table)}, got {tuple(sigT.shape)}")
     if table.is_cuda:
-        return _meso_cuda(table, cell)
-    return meso_sigma_plain(table, cell)
+        if sigT is None:
+            sigT = sigma_table(table)
+        return _meso_cuda(cell, sigT)
+    if sigT is None:
+        return meso_sigma_plain(table, cell)
+    return meso_gather_plain(sigT, cell)

@@ -156,7 +156,7 @@ def _meso_sigma_exact(met01: Met, ix, iy, iz):
 
 
 def module_diff_meso(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
-                     packT=None, sig=None):
+                     packT=None, sig=None, sigT=None):
     """Mesoscale wind fluctuations: AR(1) colored noise scaled to the
     local subgrid wind variance (reference c:4258-4335).
 
@@ -164,7 +164,8 @@ def module_diff_meso(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
     (ops.rk_fused).  Without it the 16-point variance of the parcel's
     cell is computed here: through the sigma kernel
     (ops.slab_interp.meso_sigma) when ``packT``, its wind table, is
-    given, else on the met fields.  The cell is located on the raw
+    given, gathered from ``sigT``, the sigma table of the pack, where
+    there is one; else on the met fields.  The cell is located on the raw
     position (no longitude wrap, no latitude clamp), as the reference
     does in this module."""
     n = atm.npmax
@@ -187,7 +188,7 @@ def module_diff_meso(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
             nx, ny = lons.shape[0], lats.shape[0]
             cell = ((iz * nx + ix) * ny + iy).to(torch.int32)
             del ix, iy, iz
-            usig, vsig, wsig = slab_interp.meso_sigma(packT, cell)
+            usig, vsig, wsig = slab_interp.meso_sigma(packT, cell, sigT)
             del cell
         else:
             usig, vsig, wsig = _meso_sigma_exact(met01, ix, iy, iz)

@@ -55,6 +55,7 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
     # float32 compute mode
     fp32 = met01.lon.dtype == torch.float32
     packT = pack.packT if pack is not None and fp32 else None
+    sigT = pack.sigT if pack is not None and fp32 else None
     sfcT = pack.sfcT if pack is not None and fp32 else None
     # Per-cell fused-RK kernel (ops.rk_fused): advect + meso sigma +
     # meteo T in ONE pass
@@ -96,7 +97,8 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
     # Mesoscale diffusion
     if ctl.diffusion and (ctl.turb_mesox > 0 or ctl.turb_mesoz > 0):
         atm, cache = m_diff.module_diff_meso(ctl, cache, met01, atm,
-                                             packT, sig=fused_sig)
+                                             packT, sig=fused_sig,
+                                             sigT=sigT)
 
     # Convection
     if (ctl.conv_mix_pbl or ctl.conv_cape >= 0) and flags.do_conv:

@@ -48,11 +48,15 @@ def build_pack(ctl: Ctl, met01: Met) -> Optional[MetPack]:
     JAX package's ``Simulation._get_pack`` chooses them (rebuild once
     per met interval): ``TPU_FAST 0`` none, the exact interpolation;
     ``TPU_FAST >= 2`` with ``SORT_DT > 0`` the fused RK kernel's;
-    otherwise the unfused kernels'."""
+    otherwise the unfused kernels', with the sigma table only where
+    the mesoscale diffusion runs."""
     if not ctl.tpu_fast:
         return None
+    meso = bool(ctl.diffusion) and (ctl.turb_mesox > 0
+                                    or ctl.turb_mesoz > 0)
     return build_met_pack(met01,
-                          cell=ctl.tpu_fast >= 2 and ctl.sort_dt > 0)
+                          cell=ctl.tpu_fast >= 2 and ctl.sort_dt > 0,
+                          sigma=meso)
 
 
 class FixedMet:

@@ -105,12 +105,60 @@ def test_uvwt_kernel_matches_plain(located):
 
 def test_meso_kernel_matches_plain(located, card):
     """On a random table and on the flagship's wind, where the variance
-    cancels from ~1e3 down to ~1: the same sums in the same order."""
+    cancels from ~1e3 down to ~1: the same sums in the same order, so
+    bit for bit."""
     table, cell, _ = located
     for tab in (table, card[4].cell.table):
         got = slab_interp.meso_sigma(tab, cell)
         exp = slab_interp.meso_sigma_plain(tab, cell)
-        assert float((got - exp).abs().max()) <= 7.7e-6
+        assert torch.equal(got, exp)
+
+
+def test_meso_sigma_table_kernel_bit_exact(located, card):
+    """K5's table kernel against ``sigma_table_plain``, bit for bit, on
+    a random table and on the flagship's wind (the cancelling case), on
+    a grid of 8 x 37 x 19 = 5624 cells, no multiple of the 256-thread
+    block; one launch a table."""
+    from mptrac_tpu_torch.ops import _cuda
+    table, _, _ = located
+    for tab in (table, card[4].cell.table):
+        ncell = tab.shape[0] * tab.shape[1] * tab.shape[2]
+        assert ncell % 256 != 0
+        before = _cuda.launch_counts["meso_sigma_table"]
+        got = slab_interp.sigma_table(tab)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts["meso_sigma_table"] == before + 1
+        assert torch.equal(got, slab_interp.sigma_table_plain(tab))
+
+
+def test_meso_sigma_gather_kernel_bit_exact(located, card):
+    """K5's gather against the stencil of each parcel's cell
+    (``meso_sigma_plain``), bit for bit: the located parcels in sorted
+    and in random order, every cell on the last node of an axis (the
+    clamp), a count no multiple of 4 and a cell stream that starts off a
+    16-byte boundary (both parcel by parcel), on both tables.  One
+    gather launch a call, no table launch."""
+    from mptrac_tpu_torch.ops import _cuda
+    table, cell, _ = located
+    n = cell.shape[0]
+    assert n % 4 == 0
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    perm = torch.randperm(n, device="cuda", generator=gen)
+    npl, nx, ny = table.shape[:3]
+    edge = torch.tensor(
+        [(iz * nx + ix) * ny + iy for iz in (0, npl - 2, npl - 1)
+         for ix in (0, nx - 2, nx - 1) for iy in (0, ny - 2, ny - 1)],
+        dtype=torch.int32, device="cuda")
+    for tab in (table, card[4].cell.table):
+        sigT = slab_interp.sigma_table(tab)
+        for c in (cell, cell[perm], edge, cell[:n - 1], cell[1:]):
+            before = dict(_cuda.launch_counts)
+            got = slab_interp.meso_sigma(tab, c, sigT)
+            torch.cuda.synchronize()
+            assert (_cuda.launch_counts["meso_sigma"],
+                    _cuda.launch_counts["meso_sigma_table"]) == (
+                before["meso_sigma"] + 1, before["meso_sigma_table"])
+            assert torch.equal(got, slab_interp.meso_sigma_plain(tab, c))
 
 
 def test_lane_and_rows_kernels_match_plain(card):
@@ -181,18 +229,23 @@ def test_probe_kernels_match_plain(gpu):
     assert torch.equal(got, probe.probe_lane_plain(packT, base, w))
     assert float(got[4].min()) == 1.0 and float(got[5:].abs().max()) == 0.0
     for G in probe.GRID_GROUPS:
-        x = torch.rand((8, 7 * G * 128), device="cuda")
-        assert torch.equal(probe.probe_grid(x, G),
-                           probe.probe_grid_plain(x, G))
+        for nchunk in (1, 7):
+            x = torch.rand((8, nchunk * G * 128), device="cuda")
+            assert torch.equal(probe.probe_grid(x, G),
+                               probe.probe_grid_plain(x, G))
     tab, idx = probe.make_small_data(n, device="cuda")
     idx[:3] = torch.tensor([0, 72, 127], dtype=torch.int32)
     assert torch.equal(probe.probe_small(tab, idx),
                        probe.probe_small_plain(tab, idx))
     counts = {k: _cuda.launch_counts[k] - before[k] for k in before}
     assert (counts["probe_lane"], counts["probe_grid"],
-            counts["probe_small"]) == (1, 3, 1)
+            counts["probe_small"]) == (1, 6, 1)
     with pytest.raises(ValueError, match="int32"):
         probe.probe_small(tab, idx.to(torch.int64))
+    # a tile row that does not start on a 16-byte boundary
+    odd = torch.rand(8 * 1024 + 1, device="cuda")[1:].view(8, 1024)
+    with pytest.raises(RuntimeError, match="refused"):
+        probe.probe_grid(odd, 8)
 
 
 @pytest.mark.parametrize("mode,fast", [("float32", "2"), ("float32", "1"),

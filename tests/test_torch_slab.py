@@ -339,14 +339,18 @@ def test_uvwt_plain_matches_exact_and_pallas(wind, order):
     assert float(got[3].std()) > 1.0 and float(got[2].std()) > 1e-3
 
 
-@pytest.mark.parametrize("order", ["sorted", "unsorted"])
-def test_meso_sigma_plain_matches_exact_and_pallas(wind, order):
+@pytest.mark.parametrize("order,use_sigT", [
+    ("sorted", False), ("unsorted", False), ("sorted", True),
+    ("unsorted", True)],
+    ids=["sorted", "unsorted", "sorted-sigT", "unsorted-sigT"])
+def test_meso_sigma_plain_matches_exact_and_pallas(wind, order, use_sigT):
     """K5 against the exact 16-point stencil on every parcel, and
     against the Pallas kernel (mode "meso", interpret mode) on the share
     that agrees (> 95 %, see the uvwt test).  The sums run in the same
     order in float32; the variance cancels several digits, so the JAX
     tests' tolerance for this pair (tests/test_slab_interp.py:122):
-    rtol 1e-2, atol 2e-3."""
+    rtol 1e-2, atol 2e-3.  ``-sigT``: gathered from the table of every
+    cell's sigma (``sigma_table``), as the unfused step does."""
     met01, atm, tmet, tatm, perm = wind
     loc_t = tinterp.locate_3d(tmet, tatm.lon, tatm.lat, tatm.p)
     ix, iy, iz = (loc_t.ix.numpy(), loc_t.iy.numpy(), loc_t.iz.numpy())
@@ -355,7 +359,8 @@ def test_meso_sigma_plain_matches_exact_and_pallas(wind, order):
     ny, npl, nx = tmet.ny, tmet.npl, tmet.nx
     table = tsl.rk_fused.build_cell_table(tmet)
     cell = torch.from_numpy(((iz * nx + ix) * ny + iy).astype(np.int32))
-    got = tsl.meso_sigma(table, cell).numpy()
+    sigT = tsl.sigma_table(table) if use_sigT else None
+    got = tsl.meso_sigma(table, cell, sigT).numpy()
     assert got.shape == (3, ix.shape[0]) and got.dtype == np.float32
     exp = _exact_sigma(met01, ix, iy, iz)
     np.testing.assert_allclose(got, exp, rtol=1e-2, atol=2e-3)
@@ -394,3 +399,56 @@ def test_uvwt_and_sigma_clamp_at_the_last_node(wind):
     assert abs(float(s[0, 0]) - abs(u0 - u1) / 2) < 2e-3
     with pytest.raises(ValueError, match="table"):
         tsl.interp_uvwt(table[..., :4], cell, (one, one, one, one))
+
+
+def _edge_cells(table):
+    """Flat cells on the last node of each axis and of each pair of axes
+    and of all three (their upper corners are clamped), and cells one
+    node short of it."""
+    npl, nx, ny = table.shape[:3]
+    cells = []
+    for iz in (0, npl - 2, npl - 1):
+        for ix in (0, nx - 2, nx - 1):
+            for iy in (0, ny - 2, ny - 1):
+                cells.append((iz * nx + ix) * ny + iy)
+    return torch.tensor(cells, dtype=torch.int32)
+
+
+def test_sigma_table_gathers_to_the_stencil(wind):
+    """K5's table holds each cell's stencil, bit for bit: the table of
+    every cell's sigma, gathered at the parcels' cells (sorted and in a
+    random order) and at cells on the last node of each axis (clamped
+    corners), equals the stencil of each parcel's cell
+    (``meso_sigma_plain``), through ``meso_sigma`` and through the plain
+    gather."""
+    _, _, tmet, tatm, perm = wind
+    table = tsl.rk_fused.build_cell_table(tmet)
+    loc = tinterp.locate_3d(tmet, tatm.lon, tatm.lat, tatm.p)
+    cell = torch.cat([tsl.cell_from_loc(table, loc), _edge_cells(table)])
+    cell = torch.cat([cell, cell[torch.from_numpy(perm)]])
+    exp = tsl.meso_sigma_plain(table, cell)
+    sigT = tsl.sigma_table(table)
+    npl, nx, ny = table.shape[:3]
+    assert tuple(sigT.shape) == (npl * nx * ny, 4)
+    assert torch.equal(sigT[cell.long(), :3].T, exp)
+    assert float(sigT[:, 3].abs().max()) == 0.0
+    assert torch.equal(tsl.meso_gather_plain(sigT, cell), exp)
+    assert torch.equal(tsl.meso_sigma(table, cell, sigT), exp)
+    # the plain table in chunks of 1000 cells is the same table
+    old = tsl.SIGMA_PLAIN_CHUNK
+    try:
+        tsl.SIGMA_PLAIN_CHUNK = 1000
+        assert torch.equal(tsl.sigma_table_plain(table), sigT)
+    finally:
+        tsl.SIGMA_PLAIN_CHUNK = old
+
+
+def test_meso_sigma_checks_the_table_shape(wind):
+    """A sigma table of another shape than the cell table's raises."""
+    _, _, tmet, _, _ = wind
+    table = tsl.rk_fused.build_cell_table(tmet)
+    cell = torch.zeros(4, dtype=torch.int32)
+    sigT = tsl.sigma_table(table)
+    for bad in (sigT[1:], sigT[:, :3], sigT.T.contiguous()):
+        with pytest.raises(ValueError, match="sigma table of shape"):
+            tsl.meso_sigma(table, cell, bad)

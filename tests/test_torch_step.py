@@ -560,19 +560,22 @@ def test_advect_plev(mid2, scheme, branch):
         [jadv._rk_weight(ctl, i) for i in range(scheme)]
 
 
-@pytest.mark.parametrize("branch", ["kernel", "exact"])
+@pytest.mark.parametrize("branch", ["kernel", "exact", "table"])
 def test_module_diff_meso_unfused(mid2, branch):
     """``module_diff_meso`` without ``sig=``: its own locate, then the
-    sigma kernel's plain version (against the JAX packed-table branch)
+    sigma kernel's plain version (against the JAX packed-table branch),
+    gathered from the pack's sigma table (``table``, against the same),
     or the stencil on the met fields (against the JAX exact branch).
     The sums run in the same order in float32; bounds of
     test_module_diff_meso."""
     setup, tpack, jpack, (ja, jc), (ta, tc) = mid2
-    kernel = branch == "kernel"
+    kernel = branch != "exact"
     ej, ejc = jdiff.module_diff_meso(setup["ctl"], jc, setup["met01"], ja,
                                      jpack.w64 if kernel else None)
-    gt, gtc = tdiff.module_diff_meso(setup["tctl"], tc, setup["tmet"], ta,
-                                     tpack.packT if kernel else None)
+    gt, gtc = tdiff.module_diff_meso(
+        setup["tctl"], tc, setup["tmet"], ta,
+        tpack.packT if kernel else None,
+        sigT=tpack.sigT if branch == "table" else None)
     assert gtc.rng_ctr == int(ejc.rng_ctr)
     np.testing.assert_allclose(gtc.uvwp.numpy(), np.asarray(ejc.uvwp),
                                rtol=0, atol=1e-5)
@@ -581,6 +584,27 @@ def test_module_diff_meso_unfused(mid2, branch):
                                    np.asarray(getattr(ej, name)),
                                    rtol=0, atol=1e-4, err_msg=name)
     assert float((gtc.uvwp - tc.uvwp).abs().max()) > 1e-3
+
+
+def test_unfused_step_reads_the_sigma_table(mid2):
+    """The unfused step takes the sigma from the pack's table: a table
+    planted with NaN gives NaN sigmas, so NaN winds, in
+    ``module_diff_meso`` (every active parcel) and in the step that
+    hands the pack to it; the pack's own table gives finite ones."""
+    setup, tpack, jpack, (ja, jc), (ta, tc) = mid2
+    nan = tpack._replace(sigT=torch.full_like(tpack.sigT, float("nan")))
+    args = (setup["tctl"], tc, setup["tmet"], ta, tpack.packT)
+    _, gc = tdiff.module_diff_meso(*args, sigT=nan.sigT)
+    _, ok = tdiff.module_diff_meso(*args, sigT=tpack.sigT)
+    active = (tc.dt != 0.0) & ta.mask
+    assert int(active.sum()) > 0
+    assert bool(torch.isnan(gc.uvwp[:, active]).all())
+    assert bool(torch.isfinite(ok.uvwp).all())
+    step = (setup["tctl"], setup["tclim"], setup["tmet"], ta, tc, 180.0 * 4)
+    _, sc = tpipe.run_timestep(*step, pack=nan)
+    assert int(torch.isnan(sc.uvwp[0]).sum()) == int(active.sum())
+    _, sc = tpipe.run_timestep(*step, pack=tpack)
+    assert bool(torch.isfinite(sc.uvwp).all())
 
 
 def test_module_diff_meso_locates_on_the_raw_position(mid2):
@@ -668,6 +692,36 @@ def test_build_pack_follows_tpu_fast(runs):
     p3 = build_pack(tctl.replace(tpu_fast=2, sort_dt=0.0), tmet)
     assert p3.cell is None and p3.packT is not None
     np.testing.assert_array_equal(p1.packT.numpy(), p2.cell.table.numpy())
+
+
+@pytest.mark.parametrize("diffusion, mesox, mesoz, built", [
+    (1, 0.16, 0.16, True), (1, 0.16, 0.0, True), (1, 0.0, 0.16, True),
+    (1, 0.0, 0.0, False), (0, 0.16, 0.16, False)])
+def test_build_pack_builds_the_sigma_table_for_meso_only(runs, diffusion,
+                                                         mesox, mesoz,
+                                                         built):
+    """``sim.build_pack`` builds the unfused pack's sigma table only
+    where ``module_diff_meso`` runs (DIFFUSION and TURB_MESOX or
+    TURB_MESOZ); otherwise the pack carries ``sigT=None``."""
+    from mptrac_tpu_torch.sim import build_pack
+    setup, _, _ = runs
+    ctl = setup["tctl"].replace(tpu_fast=1, diffusion=diffusion,
+                                turb_mesox=mesox, turb_mesoz=mesoz)
+    pack = build_pack(ctl, setup["tmet"])
+    assert pack.packT is not None
+    assert (pack.sigT is not None) == built
+
+
+def test_build_met_pack_carries_the_sigma_table(runs):
+    """``build_met_pack(cell=False)`` builds the sigma table of its wind
+    table, equal to the plain table cell for cell; the fused pack
+    (``cell=True``) carries none."""
+    from mptrac_tpu_torch.ops import slab_interp as tsl
+    setup, _, _ = runs
+    p1 = tbuild(setup["tmet"], cell=False)
+    assert torch.equal(p1.sigT, tsl.sigma_table_plain(p1.packT))
+    assert tbuild(setup["tmet"], cell=True).sigT is None
+    assert tbuild(setup["tmet"], cell=False, sigma=False).sigT is None
 
 
 def _small_pair():
