@@ -43,8 +43,12 @@ non-zero code and prints no result.  Phases, each of which must pass:
    like the others.  All kernels are printed as one JSON line
    ``{"kernels": [...]}``;
 7. card against CPU: 10 steps at the tests' size on "cuda" and on "cpu",
-   for the fused path, the unfused path and the exact float64 path;
-8. trac path: the run a user starts from files.  In a temporary
+   for the fused path, the unfused path and the exact float64 path, and
+   for the chemistry step on the fused and on the exact float64 path;
+8. chem path: the flagship with its chemistry (``phys="chem"``:
+   convection, OH and H2O2 chemistry, wet and dry deposition of SO2) on
+   the fused path at N parcels, driven and counted as the main path;
+9. trac path: the run a user starts from files.  In a temporary
    directory: three netCDF met snapshots of the flagship wind one hour
    apart, a binary particle file of N parcels, a control file with the
    flagship's parameters and a dirlist; then
@@ -54,9 +58,13 @@ non-zero code and prints no result.  Phases, each of which must pass:
    of every met file, of reading and writing the particles, the
    milliseconds of every step and of the table rebuilds, and the timer
    table.  The output file is read back and checked;
-9. trac against CPU: the same through files at the tests' size on "cuda"
-   and on "cpu", float32 fused and float64 exact;
-10. probes: ``mptrac_tpu_torch.perf.probe lane grid small`` (kernels
+10. trac against CPU: the same through files at the tests' size on
+    "cuda" and on "cpu", float32 fused and float64 exact;
+11. golden_long: the port's ``run_trac`` on the card in float64 on a
+    temporary copy of ``parity/golden_long`` (1020 steps of the reference
+    model's chemistry configuration), held to the golden particle files
+    at the staged tolerances of tests/test_long_parity.py;
+12. probes: ``mptrac_tpu_torch.perf.probe lane grid small`` (kernels
     P1-P3) driven through its entry point with the counts zeroed before
     and read after, then each kernel against its plain version on every
     element at 2,000,000 and at N parcels, with times and bounds.
@@ -69,9 +77,9 @@ table build) and P1-P3.
 
 N is fixed at 100,663,296 parcels (100M rounded up to a multiple of
 2^21, the size the JAX benchmark uses).  ``--np`` and ``--steps`` exist
-for short debugging runs; ``--profile`` adds, for each path, a pass over two extra steps timed
-module by module and a profiler pass that prints the device time by
-kernel.
+for short debugging runs; ``--profile`` adds, for each path (the chem
+path too), a pass over two extra steps timed module by module and a
+profiler pass that prints the device time by kernel.
 """
 
 import argparse
@@ -108,6 +116,10 @@ TOLS_F32 = dict(lon=6.2e-4, lat=6.2e-4, p=6.2e-4, t=6.2e-5, m=2e-6,
                 uvwp=5e-3, rh=1e-4, sh=1e-9)
 TOLS_F64 = dict(lon=1e-7, lat=1e-7, p=5e-6, t=1e-9, m=1e-12, uvwp=5e-6,
                 rh=1e-6, sh=1e-12)
+#: the chemistry step: each step's OH loss passes through log10,
+#: pow(0.6, x) and exp of the parcel's M and T, a few float32 ulp apart
+#: between the two math libraries, over ten steps: m to 1e-5 in float32
+TOLS_CHEM_F32 = dict(TOLS_F32, m=1e-5)
 
 #: quantities sampled on the unfused path: straight 3-D samplings (the
 #: uvwt kernel), a derived quantity and a surface field (the surface
@@ -221,13 +233,14 @@ def phase_build():
     return usage
 
 
-def drive_flagship(torch, tag, n, steps, profile, extra_args):
-    """The flagship through ``Simulation`` with the pack that its
-    ``TPU_FAST`` asks for: initial sort, warm-up steps, timed steps.
-    Launch counts are zeroed just before and read just after.  Checks
-    what every path must show (finite state, moved parcels, the RNG
-    counter, the mass decay, parcel times, T = 280 K, the sorts) and
-    returns (sim, counts, stats)."""
+def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base"):
+    """The flagship (rung ``phys`` of its physics ladder) through
+    ``Simulation`` with the pack that its ``TPU_FAST`` asks for: initial
+    sort, warm-up steps, timed steps.  Launch counts are zeroed just
+    before and read just after.  Checks what every path must show
+    (finite state, moved parcels, the RNG counter, the mass decay, or
+    with the chemistry a loss beyond it, parcel times, T = 280 K, the
+    sorts) and returns (sim, counts, stats)."""
     from mptrac_tpu_torch import flagship
     from mptrac_tpu_torch.ops import _cuda
     from mptrac_tpu_torch.sim import FixedMet, Simulation
@@ -235,7 +248,7 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args):
     t0 = time.time()
     ctl, clim, met01, atm, cache = flagship.make_setup(
         n, *GRID, extra_args=("SORT_DT", str(int(SORT_DT))) + extra_args,
-        device="cuda")
+        device="cuda", phys=phys)
     sim = Simulation(ctl, atm, clim, met=FixedMet(met01), cache=cache)
     ctl = sim.ctl
     del atm, cache
@@ -281,14 +294,24 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args):
             raise RuntimeError(f"{tag}: non-finite values in {name}")
     if not moved > 1e-3:
         raise RuntimeError(f"{tag}: parcels did not move")
-    want_ctr = total * 2 * (3 * n + 1)
+    # two diffusion draws of 3n + 1 a step, and the convection's n + 1
+    conv = ctl.conv_mix_pbl or ctl.conv_cape >= 0
+    want_ctr = total * (2 * (3 * n + 1) + (n + 1 if conv else 0))
     if c.rng_ctr != want_ctr:
         raise RuntimeError(f"{tag}: rng_ctr {c.rng_ctr}, expected "
                            f"{want_ctr}")
     want_m = math.exp(-dt_mod / ctl.tdec_trop) ** total
-    m_err = float((a.q["m"] / want_m - 1.0).abs().max())
-    if not m_err < 1e-5:
-        raise RuntimeError(f"{tag}: mass decay off by {m_err:.2e} rel.")
+    if phys in ("chem", "full"):
+        # OH chemistry and dry deposition take mass beyond the decay
+        m_max = float(a.q["m"].max())
+        m_err = float(a.q["m"].min()) / want_m - 1.0
+        if not (m_max <= want_m * (1.0 + 1e-5) and -0.5 < m_err < -1e-6):
+            raise RuntimeError(f"{tag}: mass {m_err:.2e} rel. off the "
+                               f"decay, largest {m_max}")
+    else:
+        m_err = float((a.q["m"] / want_m - 1.0).abs().max())
+        if not m_err < 1e-5:
+            raise RuntimeError(f"{tag}: mass decay off by {m_err:.2e} rel.")
     if not float((a.time - ts[-1]).abs().max()) == 0.0:
         raise RuntimeError(f"{tag}: parcel times did not reach t")
     if not (abs(float(a.q["t"].min()) - 280.0) < 1e-2
@@ -299,15 +322,19 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args):
                                                "rows")}
     # one count pass a sort, then the gather or the pack and rows kernels;
     # the first sort (a random order) takes the row path, the re-sort of
-    # the timed steps the gather path
+    # the timed steps the gather path, but where convection moves every
+    # parcel to a random height each step (phys chem) the re-sort's
+    # permutation is random too and takes the row path
+    both_paths = phys == "base" and steps >= TIMED_STEPS
     if (sim.nsorts != expect_sorts or k3["count"] != expect_sorts
             or k3["pack"] != k3["rows"]
             or k3["gather"] + k3["rows"] != expect_sorts
-            or (steps >= TIMED_STEPS and min(k3.values()) < 1)):
+            or (both_paths and min(k3.values()) < 1)):
         raise RuntimeError(f"{tag}: {sim.nsorts} sorts, K3 launches {k3}, "
                            f"expected {expect_sorts} sorts")
     stats = {
-        "n_parcels": n, "grid": list(GRID), "steps_timed": steps,
+        "phys": phys, "n_parcels": n, "grid": list(GRID),
+        "steps_timed": steps,
         "steps_warmup": WARMUP_STEPS, "resorts": sim.nsorts - 1,
         "initial_sort_s": sort0_s, "initial_sort_peak_bytes": sort_peak,
         "warmup_s": warm_s,
@@ -369,6 +396,29 @@ def phase_unfused_path(torch, n, steps, profile):
     return sim, counts
 
 
+def phase_chem_path(torch, n, steps, profile):
+    """The flagship with the chemistry (phys ``chem``: convection, OH and
+    H2O2 chemistry, wet and dry deposition of SO2) on the fused path:
+    one K1 launch a step, K2 for the turbulent diffusion, K3 for the
+    sorts; the modules of the chemistry are plain PyTorch."""
+    sim, counts, stats = drive_flagship(torch, "chem", n, steps, profile,
+                                        ("TPU_FAST", "2"), phys="chem")
+    total = WARMUP_STEPS + steps
+    ctl = sim.ctl
+    if not (ctl.oh_chem_reaction == 3 and ctl.h2o2_chem_reaction == 1
+            and ctl.conv_cape >= 0 and ctl.dry_depo_vdep > 0):
+        raise RuntimeError("chem path: the control parameters do not "
+                           "switch the chemistry on")
+    if counts["rk_fused_advect"] != total:
+        raise RuntimeError(f"chem path: K1 launches "
+                           f"{counts['rk_fused_advect']} != steps {total}")
+    if counts["sfc_interp"] < total:
+        raise RuntimeError(f"chem path: K2 launches {counts['sfc_interp']} "
+                           f"< {total}")
+    say(json.dumps({"chem_path": stats}))
+    return sim, counts
+
+
 def profile_steps(torch, sim, ts2):
     """Where a step's device time goes: by module (CUDA events around
     each module of the pipeline, the random draws counted apart from
@@ -376,8 +426,9 @@ def profile_steps(torch, sim, ts2):
     (torch.profiler, printed)."""
     from torch.profiler import ProfilerActivity, profile as prof
 
-    from mptrac_tpu_torch.physics import (advect, decay, diffusion, meteo,
-                                          position, timesteps)
+    from mptrac_tpu_torch.physics import (advect, bound, chem, convection,
+                                          decay, depo, diffusion, meteo,
+                                          mixing, position, timesteps)
     spans = []
 
     def wrap(mod, name):
@@ -403,7 +454,17 @@ def profile_steps(torch, sim, ts2):
                wrap(diffusion, "module_diff_turb"),
                wrap(diffusion, "module_diff_meso"),
                wrap(meteo, "module_meteo"),
-               wrap(decay, "module_decay")]
+               wrap(decay, "module_decay"),
+               wrap(convection, "module_rng"),
+               wrap(convection, "module_convection"),
+               wrap(bound, "module_bound_cond"),
+               wrap(mixing, "module_mixing"),
+               wrap(chem, "module_chem_grid"),
+               wrap(chem, "module_oh_chem"),
+               wrap(chem, "module_h2o2_chem"),
+               wrap(chem, "module_tracer_chem"),
+               wrap(depo, "module_wet_depo"),
+               wrap(depo, "module_dry_depo")]
     try:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -421,6 +482,10 @@ def profile_steps(torch, sim, ts2):
     per["module_diff_turb+meso (without rng)"] = (
         per.pop("module_diff_turb") + per.pop("module_diff_meso")
         - per["module_rng3"])
+    if "module_convection" in per:
+        # ... and the convection's uniform draws from the convection
+        per["module_convection (without rng)"] = (
+            per.pop("module_convection") - per["module_rng"])
     per["step"] = e0.elapsed_time(e1) / len(ts2)
 
     ts3 = [ts2[-1] + sim.ctl.dt_mod * (i + 1) for i in range(2)]
@@ -745,8 +810,6 @@ def phase_kernels_unfused(torch, sim, counts):
     #: of the largest value (280 K: ulp 3.1e-5; winds and the random
     #: table stay under 64: ulp 3.8e-6)
     tol_uvw, tol_t = 7.7e-6, 6.2e-5
-    #: sigma: the same sums in the same order; 2 ulp of 64
-    tol_sig = 7.7e-6
     kernels = []
 
     def timed_plain(fn, tensors):
@@ -917,25 +980,44 @@ def phase_kernels_unfused(torch, sim, counts):
         (base,) + rows4)
     err6 = check("K6 interp", got, exp, [tol_uvw] * 3 + [tol_t])
     del got, exp
+    # the sigma mode: one sigma16 a run of equal cells, the same sums in
+    # the same order as the plain version, so bit for bit; in a random
+    # parcel order too
     exp, plain6m = timed_plain(
         lambda b: lane_interp.meso_sigma_plain(lanes.pack64, b), (base,))
-    err6m = check("K6 sigma", sig6, exp, [tol_sig] * 3)
-    del sig6, exp
+    if not bool(torch.equal(sig6, exp)):
+        raise RuntimeError("K6 sigma differs from meso_sigma_plain")
+    err6m = 0.0
+    perm = torch.randperm(n, device="cuda", generator=gen)
+    base_r = base[perm]
+    sig6_r, _ = lane_interp.meso_sigma_sorted(lanes, base_r)
+    if not bool(torch.equal(sig6_r, exp[:, perm])):
+        raise RuntimeError("K6 sigma: a random parcel order changes the "
+                           "values")
+    del sig6, sig6_r, exp, perm
+    runs6 = int(torch.unique_consecutive(base).numel())
+    cells6 = int(torch.unique(base).numel())
     ms6 = time_ms(lambda: lane_interp.interp_uvwt_sorted(lanes, base, w4s),
                   torch)
     ms6m = time_ms(lambda: lane_interp.meso_sigma_sorted(lanes, base), torch)
-    t64 = lanes.pack64.numel() * 4
-    # the sigma reads the 48 wind lanes of a row, not its 16 T lanes
-    b6m = bound_ms(n * 16 + t64 * 48 // 64, n * 159)
+    ms6m_r = time_ms(lambda: lane_interp.meso_sigma_sorted(lanes, base_r),
+                     torch)
+    del base_r
+    # the rows of the cells that hold parcels, each read once: 256 bytes
+    # for the interpolation; the sigma reads a row's 48 wind lanes, not
+    # its 16 T lanes, and does 159 operations a run of parcels in a cell
+    b6m = bound_ms(n * 16 + cells6 * 192, runs6 * 159)
     kernels.append(entry(
         "lane_interp", "mptrac_tpu_torch/csrc/lane_interp.cu",
         "mptrac_tpu/ops/lane_interp.py:65",
         ops_counts["lane_interp_uvwt"] + ops_counts["lane_meso_sigma"],
-        max(err6, err6m), ms6, plain6, n * 36 + t64, n * 180, 36,
-        [tol_uvw, tol_t, tol_sig], mode="interp",
+        max(err6, err6m), ms6, plain6, n * 36 + cells6 * 256, n * 180, 36,
+        [tol_uvw, tol_t, 0.0], mode="interp",
         launches_by_mode={"interp": ops_counts["lane_interp_uvwt"],
                           "meso": ops_counts["lane_meso_sigma"]},
         meso={"max_abs_err": err6m, "ms": ms6m, "plain_ms": plain6m,
+              "ms_random_order": ms6m_r, "parcels_per_run": n / runs6,
+              "cells_touched": cells6,
               "bound_ms": b6m[0], "bound_by": b6m[1],
               "bytes_per_parcel": 16}))
     del lanes
@@ -962,9 +1044,11 @@ def phase_kernels_unfused(torch, sim, counts):
 def phase_card_vs_cpu(torch):
     """10 steps at the tests' size on the card and on the CPU, for the
     fused path, the unfused path and the exact float64 path, held to
-    the ten-step tolerances of tests/test_torch_step.py.  The unfused
-    and the exact path run on a humid met (q = 4e-3) and sample rh and
-    sh, so the humidity branch of module_meteo runs on the card."""
+    the ten-step tolerances of tests/test_torch_step.py, and for the
+    chemistry step (phys ``chem``) on the fused path and on the exact
+    float64 path.  The unfused and the exact path run on a humid met
+    (q = 4e-3) and sample rh and sh, so the humidity branch of
+    module_meteo runs on the card."""
     from mptrac_tpu_torch import flagship
     from mptrac_tpu_torch.ops import thermo
     from mptrac_tpu_torch.sim import FixedMet, Simulation
@@ -982,16 +1066,19 @@ def phase_card_vs_cpu(torch):
     humid = ("NQ", "4", "QNT_NAME[2]", "rh", "QNT_NAME[3]", "sh")
     q_humid = 4e-3
     report = {}
-    for path, fast, dtype, tols, q in (
-            ("fused", "2", f32, tols32, 0.0),
-            ("unfused", "1", f32, tols32, q_humid),
-            ("exact_f64", "0", f64, tols64, q_humid)):
+    for path, fast, dtype, tols, q, phys in (
+            ("fused", "2", f32, tols32, 0.0, "base"),
+            ("unfused", "1", f32, tols32, q_humid, "base"),
+            ("exact_f64", "0", f64, tols64, q_humid, "base"),
+            ("chem_fused", "2", f32, TOLS_CHEM_F32, 0.0, "chem"),
+            ("chem_exact_f64", "0", f64, tols64, 0.0, "chem")):
         out = {}
         for dev in ("cuda", "cpu"):
             ctl, clim, met01, atm, cache = flagship.make_setup(
                 2048, nx=36, ny=19, nz=8,
                 extra_args=("SORT_DT", "900", "TPU_FAST", fast)
-                + (humid if q else ()), device=dev, dtype=dtype, q=q)
+                + (humid if q else ()), device=dev, dtype=dtype, q=q,
+                phys=phys)
             sim = Simulation(ctl, atm, clim, met=FixedMet(met01),
                              cache=cache)
             sim.sort()
@@ -1027,7 +1114,12 @@ def phase_card_vs_cpu(torch):
                 raise RuntimeError(
                     f"card vs CPU ({path}): {name} differs by "
                     f"{errs[name]:.3e} > {tols[name]:.1e}")
-        report[path] = {"max_abs_err": errs, "tolerance": {k: tols[k] for k in errs}}
+        if phys == "chem" and not float(a.atm.q["m"].min()) < math.exp(
+                -10 * ctl.dt_mod / ctl.tdec_trop) * (1.0 - 1e-6):
+            raise RuntimeError(f"card vs CPU ({path}): no loss beyond the "
+                               "decay")
+        report[path] = {"max_abs_err": errs,
+                        "tolerance": {k: tols[k] for k in errs}}
     say(json.dumps({"card_vs_cpu": {"steps": 10, "n_parcels": 2048,
                                     "paths": report}}))
 
@@ -1277,6 +1369,89 @@ def phase_trac_vs_cpu(torch):
                                     "grid": [36, 19, 8], "modes": report}}))
 
 
+# ------------------------------------------------------ golden_long on card
+
+def phase_golden_long(torch):
+    """The port's ``run_trac`` on a temporary copy of
+    ``parity/golden_long`` (the reference model's 1020 steps of the
+    chemistry configuration, 2000 parcels) on the card in float64, with
+    the ``CLIM_*`` overrides that point at this package's climatology
+    files, held to the golden particle files at the staged tolerances of
+    tests/test_long_parity.py (``STAGES``, imported from there) and to
+    its below-a-cell check.  Mixing and the chemistry grid add with
+    ``index_add_``, which the card does in no fixed order, so these are
+    tolerance checks."""
+    import numpy as np
+
+    from mptrac_tpu_torch.sim import run_trac
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    gold = os.path.join(root, "parity", "golden_long", "data")
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from test_full_parity import load_tab
+    from test_long_parity import STAGES
+    clim = os.path.join(root, "mptrac_tpu_torch", "data")
+    overrides = (
+        "CLIM_PHOTO", os.path.join(clim, "clams_photolysis_rates.nc"),
+        "CLIM_OH_FILENAME", os.path.join(clim, "clams_radical_species_vmr.nc"),
+        "CLIM_H2O2_FILENAME", os.path.join(clim, "cams_H2O2.nc"),
+        "CLIM_HO2_FILENAME", os.path.join(clim, "clams_radical_species_vmr.nc"),
+        "CLIM_O1D_FILENAME", os.path.join(clim, "clams_radical_species_vmr.nc"),
+        "CLIM_CCL3F_TIMESERIES", os.path.join(clim, "noaa_gml_cfc11.tab"))
+    tmp = tempfile.mkdtemp(prefix="mptrac_golden_")
+    cwd = os.getcwd()
+    try:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        for f in sorted(os.listdir(gold)):
+            if f in ("trac.ctl", "atm_split.tab") or f.startswith("met_"):
+                shutil.copy(os.path.join(gold, f), data)
+        os.chdir(tmp)
+        t0 = time.time()
+        sim = run_trac("data", "trac.ctl", "atm_split.tab",
+                       ("ATM_BASENAME", "atm") + overrides, device="cuda",
+                       dtype=torch.float64)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        os.chdir(cwd)
+        nsteps = sim.timers.as_dict()["RUN_TIMESTEP"]["count"]
+        if sim.atm.lon.device.type != "cuda" or nsteps != 1021:
+            raise RuntimeError(f"golden_long: {nsteps} steps on "
+                               f"{sim.atm.lon.device}")
+        stages = {}
+        for stamp, step, col_tol, default in STAGES:
+            f = f"atm_{stamp}.tab"
+            ours = load_tab(os.path.join(data, f))
+            ref = load_tab(os.path.join(gold, f))
+            if ours.shape != ref.shape:
+                raise RuntimeError(f"golden_long {f}: shape {ours.shape} vs "
+                                   f"{ref.shape}")
+            errs = []
+            for c in range(ref.shape[1]):
+                rtol, atol = col_tol.get(c, default)
+                errs.append(float(np.max(np.abs(ours[:, c] - ref[:, c]))))
+                if not np.allclose(ours[:, c], ref[:, c], rtol=rtol,
+                                   atol=atol, equal_nan=True):
+                    raise RuntimeError(
+                        f"golden_long {f} column {c}: max abs diff "
+                        f"{errs[-1]:.3e} beyond rtol {rtol} atol {atol}")
+            stages[f"step{step}"] = {"max_abs_err_by_column": errs}
+        ours = load_tab(os.path.join(data, f"atm_{STAGES[-1][0]}.tab"))
+        ref = load_tab(os.path.join(gold, f"atm_{STAGES[-1][0]}.tab"))
+        med = {"lon": float(np.median(np.abs(ours[:, 2] - ref[:, 2]))),
+               "lat": float(np.median(np.abs(ours[:, 3] - ref[:, 3]))),
+               "z": float(np.median(np.abs(ours[:, 1] - ref[:, 1])))}
+        if not (med["lon"] < 0.5 and med["lat"] < 0.5 and med["z"] < 0.1):
+            raise RuntimeError(f"golden_long: median divergence {med}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(json.dumps({"golden_long": {
+        "steps": nsteps - 1, "n_parcels": sim.atm.np, "dtype": "float64",
+        "seconds": seconds, "met_files": len(sim.met.reads),
+        "stages": stages, "median_divergence_step1020": med}}))
+
+
 # ------------------------------------------------------------- the probes
 
 PROBE_N = 2_000_000
@@ -1433,9 +1608,13 @@ def main():
     del sim
     torch.cuda.empty_cache()
     phase_card_vs_cpu(torch)
+    sim, counts = phase_chem_path(torch, args.np, args.steps, args.profile)
+    del sim
+    torch.cuda.empty_cache()
     phase_trac_path(torch, args.np)
     torch.cuda.empty_cache()
     phase_trac_vs_cpu(torch)
+    phase_golden_long(torch)
     kernels += phase_probes(torch, args.np)
     say(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """The flagship configuration: solid-body wind on a global grid with
-advection, turbulent and mesoscale diffusion and exponential decay.
+advection, turbulent and mesoscale diffusion and exponential decay, and
+the physics ladder above it.
 
-Counterpart of ``__graft_entry__._make_setup`` (phys ``base``) of the
-JAX package, with the same control parameters and the same parcel
+Counterpart of ``__graft_entry__._make_setup`` of the JAX package, with
+the same control parameters for each ``phys`` and the same parcel
 positions (numpy ``default_rng(0)``), so both packages can be started
 from one state.
 """
@@ -27,11 +28,32 @@ FLAGSHIP_ARGS = (
     "TDEC_TROP", "259200", "TDEC_STRAT", "259200",
     "T_STOP", "86400")
 
+#: control parameters each rung of the physics ladder adds to the
+#: flagship's (``__graft_entry__._make_setup``): ``conv`` convection,
+#: ``chem`` OH / H2O2 chemistry and wet / dry deposition of SO2.
+#: ``full`` is ``chem``: the JAX package's ladder adds nothing more.
+PHYS_ARGS = {
+    "base": (),
+    "conv": ("CONV_CAPE", "0.0", "CONV_MIX_PBL", "1"),
+    "chem": ("SPECIES", "SO2",
+             "CONV_CAPE", "0.0", "CONV_MIX_PBL", "1",
+             "OH_CHEM_REACTION", "3", "H2O2_CHEM_REACTION", "1",
+             "WET_DEPO_IC_A", "2.6e-5", "WET_DEPO_IC_B", "0.62",
+             "WET_DEPO_BC_A", "2e-6", "WET_DEPO_BC_B", "0.62",
+             "WET_DEPO_IC_H[0]", "5e5", "WET_DEPO_BC_H[0]", "5e5",
+             "DRY_DEPO_VDEP", "0.01"),
+}
+PHYS_ARGS["full"] = PHYS_ARGS["chem"]
+
 
 def make_setup(n_parcels: int, nx: int = 90, ny: int = 46, nz: int = 16,
                extra_args: Sequence[str] = (), device="cuda",
-               dtype=torch.float32, q: float = 0.0):
+               dtype=torch.float32, q: float = 0.0, phys: str = "base"):
     """(ctl, clim, met01, atm, cache) of the flagship on ``device``.
+
+    ``phys`` is the rung of the physics ladder (``PHYS_ARGS``):
+    ``"base"``, ``"conv"``, ``"chem"`` or ``"full"`` (the same as
+    ``"chem"``).
 
     ``dtype`` is the compute mode of the state: float32 (the mode the
     kernels need; time stays float64) or float64 (the reference-parity
@@ -40,9 +62,13 @@ def make_setup(n_parcels: int, nx: int = 90, ny: int = 46, nz: int = 16,
     over ``FLAGSHIP_ARGS``; ``q`` is the uniform
     water vapour mixing ratio of the met fields (0 in the flagship;
     derived humidity quantities need it positive)."""
+    if phys not in PHYS_ARGS:
+        raise ValueError(f"phys {phys!r}: expected one of "
+                         f"{', '.join(PHYS_ARGS)}")
     dev = resolve_device(device)
     # (the first occurrence of a key wins: extra_args override)
-    ctl = read_ctl(None, list(extra_args) + list(FLAGSHIP_ARGS))
+    ctl = read_ctl(None, list(extra_args) + list(PHYS_ARGS[phys])
+                   + list(FLAGSHIP_ARGS))
     clim = read_clim(ctl, device=dev)
     met0 = make_wind_met(t0=0.0, nx=nx, ny=ny, nz=nz, alpha=30.0, q=q,
                          device=dev)

@@ -103,6 +103,40 @@ def squares_normal(ctr: int, n: int, device="cuda"
     return out, ctr
 
 
+def squares_uniform_f32(ctr: int, n: int, device="cuda"
+                        ) -> Tuple[torch.Tensor, int]:
+    """``n + 1`` float32 uniforms from the same Squares bit stream (fp32
+    compute mode): the top 24 bits of each 64-bit draw, scaled by
+    2^-24.  Same counter advance as ``squares_uniform``.  The chain runs
+    in passes of ``RNG_CHUNK`` draws, which bounds its int64
+    temporaries."""
+    dev = torch.device(device)
+    out = torch.empty(n + 1, dtype=torch.float32, device=dev)
+    for s in range(0, n + 1, RNG_CHUNK):
+        cnt = min(RNG_CHUNK, n + 1 - s)
+        hi, _ = _squares_core(_counters(ctr, s, cnt, dev))
+        torch.mul((hi >> 8).to(torch.float32), 0.5 ** 24,
+                  out=out[s:s + cnt])
+        del hi
+    return out, (ctr + n + 1) & _M64
+
+
+def squares_normal_f32(ctr: int, n: int, device="cuda"
+                       ) -> Tuple[torch.Tensor, int]:
+    """``n`` float32 Box-Muller normals over the float32 uniform stream
+    (fp32 compute mode; the pairing of ``squares_normal``)."""
+    u, ctr = squares_uniform_f32(ctr, n, device)
+    m = (n + 1) // 2
+    evens = torch.clamp(u[0:n:2], min=0.5 ** 25)
+    odds = u[1:n + 1:2]
+    r = torch.sqrt(-2.0 * torch.log(evens))
+    phi = (2.0 * 3.141592653589793) * odds   # the factor rounds to float32
+    out_e = r * torch.cos(phi)
+    out_o = r * torch.sin(phi)
+    out = torch.stack([out_e[:m], out_o[:m]], dim=1).reshape(-1)[:n]
+    return out, ctr
+
+
 def squares_normal3_f32(ctr: int, n: int, device="cuda"
                         ) -> Tuple[torch.Tensor, int]:
     """Three component-major float32 normal streams from the Squares
@@ -131,6 +165,35 @@ def squares_normal3_f32(ctr: int, n: int, device="cuda"
     return out, (ctr + 3 * n + 1) & _M64
 
 
+def _require_squares(ctl_rng_type: int):
+    if ctl_rng_type not in (0, 1):
+        raise NotImplementedError(
+            f"RNG_TYPE {ctl_rng_type}: only the Squares generator "
+            "(types 0 and 1) is ported")
+
+
+def module_rng(ctl_rng_type: int, ctr: int, n: int, method: int,
+               dtype=torch.float64, device="cuda"
+               ) -> Tuple[torch.Tensor, int]:
+    """``n`` uniform (``method`` 0) or standard-normal (1) draws and the
+    advanced counter, as the reference ``module_rng`` (c:5535) draws
+    them with the Squares generator.  float32 uses the float32
+    formulations (``squares_uniform_f32``, ``squares_normal_f32``),
+    float64 the reference's stream.  Only RNG_TYPE 0 and 1 (both
+    Squares) are ported."""
+    _require_squares(ctl_rng_type)
+    if dtype == torch.float32:
+        if method == 0:
+            u, ctr = squares_uniform_f32(ctr, n, device)
+            return u[:n], ctr
+        return squares_normal_f32(ctr, n, device)
+    if method == 0:
+        u, ctr = squares_uniform(ctr, n, device)
+        return u[:n].to(dtype), ctr
+    rs, ctr = squares_normal(ctr, n, device)
+    return rs.to(dtype), ctr
+
+
 def module_rng3(ctl_rng_type: int, ctr: int, n: int,
                 dtype=torch.float64, device="cuda"
                 ) -> Tuple[torch.Tensor, int]:
@@ -141,10 +204,7 @@ def module_rng3(ctl_rng_type: int, ctr: int, n: int,
     stream (module_rng method 1, c:5632-5648) and transposes; f32 uses
     the contiguous formulation (squares_normal3_f32).  Only RNG_TYPE 0
     and 1 (both Squares) are ported."""
-    if ctl_rng_type not in (0, 1):
-        raise NotImplementedError(
-            f"RNG_TYPE {ctl_rng_type}: only the Squares generator "
-            "(types 0 and 1) is ported")
+    _require_squares(ctl_rng_type)
     if dtype == torch.float32:
         return squares_normal3_f32(ctr, n, device)
     rs, ctr = squares_normal(ctr, 3 * n, device)

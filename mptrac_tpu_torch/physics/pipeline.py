@@ -3,10 +3,12 @@
 Counterpart of the JAX package's ``physics/pipeline.py:31-207`` (the
 reference ``mptrac_run_timestep``, mptrac.c:7545-7694): the fixed
 module order with the enables resolved from Ctl on the host.  Eager:
-one call runs one step.  Ported so far: timesteps, position, advection
+one call runs one step.  Ported: timesteps, position, advection
 on pressure levels (fused, unfused through the kernels, or exact),
-turbulent and mesoscale diffusion, meteo sampling, decay, and the
-first-step initialisation (``init_modules``).  The pack decides the path: with
+turbulent and mesoscale diffusion, convection, meteo sampling, boundary
+conditions, decay, mixing, the chemistry grid, OH / H2O2 / tracer
+chemistry, wet and dry deposition, and the first-step initialisation
+(``init_modules``).  The pack decides the path: with
 ``pack.cell`` the fused RK kernel, with ``pack.packT`` the unfused
 kernels, without a pack (or with a float64 state) the exact
 interpolation.  A gate that would reach a module that is not ported
@@ -22,8 +24,14 @@ import torch
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.ops.fast_interp import MetPack
 from mptrac_tpu_torch.physics import advect as m_advect
+from mptrac_tpu_torch.physics import bound as m_bound
+from mptrac_tpu_torch.physics import chem as m_chem
+from mptrac_tpu_torch.physics import convection as m_conv
+from mptrac_tpu_torch.physics import decay as m_decay
+from mptrac_tpu_torch.physics import depo as m_depo
 from mptrac_tpu_torch.physics import diffusion as m_diff
 from mptrac_tpu_torch.physics import meteo as m_meteo
+from mptrac_tpu_torch.physics import mixing as m_mixing
 from mptrac_tpu_torch.physics import position as m_position
 from mptrac_tpu_torch.physics import timesteps as m_timesteps
 from mptrac_tpu_torch.types import Atm, Cache, Clim, Met
@@ -102,7 +110,7 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
 
     # Convection
     if (ctl.conv_mix_pbl or ctl.conv_cape >= 0) and flags.do_conv:
-        _unported("module_convection")
+        atm, cache = m_conv.module_convection(ctl, cache, met01, atm)
 
     # Sedimentation
     if ctl.qnt("rp") >= 0 and ctl.qnt("rhop") >= 0:
@@ -125,7 +133,7 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
     bound_on = (ctl.bound_lat0 < ctl.bound_lat1
                 and ctl.bound_p0 > ctl.bound_p1)
     if bound_on:
-        _unported("module_bound_cond")
+        atm = m_bound.module_bound_cond(ctl, cache, clim, met01, atm)
 
     # Initialize total loss rate
     if ctl.qnt("loss_rate") >= 0:
@@ -136,33 +144,50 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
 
     # Exponential decay
     if ctl.tdec_trop > 0 and ctl.tdec_strat > 0:
-        from mptrac_tpu_torch.physics.decay import module_decay
-        atm = module_decay(ctl, cache, clim, atm)
+        atm = m_decay.module_decay(ctl, cache, clim, atm)
 
     # Interparcel mixing
     if (ctl.mixing_trop >= 0 and ctl.mixing_strat >= 0
             and flags.do_mixing):
-        _unported("module_mixing")
+        atm = m_mixing.module_mixing(ctl, clim, atm, t)
 
-    # Chemistry grid, OH / H2O2 / tracer chemistry, KPP
+    # Chemistry grid
     if (ctl.oh_chem_reaction != 0 or ctl.h2o2_chem_reaction != 0
             or (ctl.kpp_chem and flags.do_kpp)):
-        _unported("module_chem_grid (and the chemistry behind it)")
+        atm = m_chem.module_chem_grid(ctl, met01, atm, t)
+
+    # OH chemistry
+    if ctl.oh_chem_reaction != 0:
+        atm = m_chem.module_oh_chem(ctl, cache, clim, met01, atm)
+
+    # H2O2 chemistry
+    if ctl.h2o2_chem_reaction != 0:
+        atm = m_chem.module_h2o2_chem(ctl, cache, clim, met01, atm)
+
+    # First-order tracer chemistry
     if ctl.tracer_chem:
-        _unported("module_tracer_chem")
+        atm = m_chem.module_tracer_chem(ctl, cache, clim, met01, atm)
 
     # Radioactive decay
     if ctl.radio_decay:
         _unported("module_radio_decay")
 
+    # KPP full chemistry
+    if ctl.kpp_chem:
+        _unported("module_kpp_chem")
+
     # Wet deposition
     if ((ctl.wet_depo_ic_a > 0 or ctl.wet_depo_ic_h[0] > 0)
             and (ctl.wet_depo_bc_a > 0 or ctl.wet_depo_bc_h[0] > 0)):
-        _unported("module_wet_depo")
+        atm = m_depo.module_wet_depo(ctl, cache, met01, atm)
 
     # Dry deposition
     if ctl.dry_depo_vdep > 0:
-        _unported("module_dry_depo")
+        atm = m_depo.module_dry_depo(ctl, cache, met01, atm)
+
+    # Boundary conditions (final)
+    if bound_on:
+        atm = m_bound.module_bound_cond(ctl, cache, clim, met01, atm)
 
     return atm, cache
 
@@ -174,6 +199,5 @@ def init_modules(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache):
     # module_advect_init does nothing on pressure levels
     if ctl.advect_vert_coord == 1 and "zeta" in atm.q:
         _unported("module_advect_init (interp_4d_zeta)")
-    from mptrac_tpu_torch.physics.chem import module_chem_init
-    atm = module_chem_init(ctl, clim, met01, atm)
+    atm = m_chem.module_chem_init(ctl, clim, met01, atm)
     return atm, cache

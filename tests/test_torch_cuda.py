@@ -200,6 +200,56 @@ def test_lane_and_rows_kernels_match_plain(card):
     assert torch.equal(slab_interp.meso_sigma(table, cell), sig)
 
 
+@pytest.mark.parametrize("order", ["sorted", "drifted", "random", "single",
+                                   "runs"])
+def test_lane_meso_sigma_bit_exact(card, order):
+    """K6's sigma mode (one sigma16 per run of equal cells in a warp's
+    tile of 256 parcels) against ``meso_sigma_plain`` bit for bit, on
+    the flagship's 64-wide table (the cancelling case) and on a random
+    one: the card's
+    sorted parcels; the same with 30 % of them moved to the cell of the
+    parcel 300 places before (runs A B A B, as parcels that drift out of
+    their cell after a sort); the same parcels in a random order; a
+    single parcel; and runs of lengths that cross the warp's rows of 32
+    and its tiles of 256, with a parcel count that is a multiple of
+    neither.  One launch a call."""
+    from mptrac_tpu_torch.ops import _cuda
+    ctl, met01, atm, cache, pack = card
+    loc = interp.locate_3d(met01, atm.lon, atm.lat, atm.p)
+    ny, npl = met01.ny, met01.npl
+    base = ((loc.ix * ny + loc.iy) * npl + loc.iz).to(torch.int32)
+    lanes = lane_interp.build_lane_tables(met01)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rand64 = lane_interp.LaneTables(pack64=torch.rand(
+        lanes.pack64.shape, device="cuda", generator=gen) * 100.0 - 50.0)
+    if order == "sorted":
+        # sorted parcels: runs of one cell, as on the unfused path
+        assert int(torch.unique_consecutive(base).numel()) < base.numel() / 4
+    elif order == "drifted":
+        moved = torch.rand(base.numel(), device="cuda", generator=gen) < 0.3
+        base = torch.where(moved, torch.roll(base, 300), base)
+    elif order == "random":
+        base = base[torch.randperm(base.numel(), device="cuda",
+                                   generator=gen)]
+    elif order == "single":
+        base = base[:1]
+    else:
+        lengths = torch.tensor([1, 31, 33, 255, 257, 2, 512, 7, 1000, 3],
+                               device="cuda")
+        cells = torch.randint(0, lanes.pack64.shape[0], (lengths.numel(),),
+                              device="cuda", generator=gen)
+        base = torch.repeat_interleave(cells, lengths).to(torch.int32)
+        assert base.numel() % 32 != 0
+    for tables in (lanes, rand64):
+        before = _cuda.launch_counts["lane_meso_sigma"]
+        got, served = lane_interp.meso_sigma_sorted(tables, base)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts["lane_meso_sigma"] == before + 1
+        assert served == 1.0
+        assert torch.equal(got, lane_interp.meso_sigma_plain(tables.pack64,
+                                                             base))
+
+
 def test_cuda_tensor_never_takes_the_plain_version(located):
     """A CUDA tensor that the kernel does not take raises; it does not
     fall back."""

@@ -29,7 +29,8 @@ def test_port_imports_no_jax():
                  "io.output", "met.read_nc", "met.process", "met.cape",
                  "met.build", "met.write_nc", "physics.chem",
                  "utils.timers", "tools._cli", "tools.trac", "perf.probe",
-                 "perf.rk_errors"):
+                 "perf.rk_errors", "perf.lane_sigma", "physics.convection",
+                 "physics.bound", "physics.mixing", "physics.depo"):
         assert "mptrac_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

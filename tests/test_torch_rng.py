@@ -83,3 +83,45 @@ def test_module_rng3(dtype, monkeypatch):
 def test_rng_type_2_raises():
     with pytest.raises(NotImplementedError, match="RNG_TYPE 2"):
         trng.module_rng3(2, 0, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="RNG_TYPE 2"):
+        trng.module_rng(2, 0, 8, 0, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ctr", [0, (1 << 33) + 5, (1 << 64) - 5])
+@pytest.mark.parametrize("n", [1, 10, 2001])
+def test_module_rng_uniform_bit_exact(dtype, ctr, n, monkeypatch):
+    """``module_rng`` method 0 (the convection's draws): values and
+    counter bit for bit in both compute modes; the float32 chain in
+    passes of any size gives the same stream."""
+    jd = getattr(jnp, dtype)
+    td = getattr(torch, dtype)
+    x_j, c_j = jrng.module_rng(1, jnp.uint64(ctr), n, 0, dtype=jd)
+    x_t, c_t = trng.module_rng(1, ctr, n, 0, dtype=td, device="cpu")
+    assert x_t.dtype == td and tuple(x_t.shape) == (n,)
+    assert c_t == int(c_j) == (ctr + n + 1) % (1 << 64)
+    np.testing.assert_array_equal(x_t.numpy(), np.asarray(x_j))
+    monkeypatch.setattr(trng, "RNG_CHUNK", 7)
+    x_c, c_c = trng.module_rng(0, ctr, n, 0, dtype=td, device="cpu")
+    assert c_c == c_t
+    np.testing.assert_array_equal(x_c.numpy(), x_t.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [9, 10, 2001])
+def test_module_rng_normal(dtype, n):
+    """``module_rng`` method 1: the uniforms under it are bit for bit
+    the JAX package's, the counter too; log, sqrt, cos and sin then come
+    from two math libraries (a few float32 ulp of values up to ~5):
+    atol 4e-6 in float32, 5e-7 in float64 (test_normal_f64).  Measured:
+    3.6e-7 and 2.0e-7."""
+    jd = getattr(jnp, dtype)
+    td = getattr(torch, dtype)
+    ctr = 12345
+    x_j, c_j = jrng.module_rng(1, jnp.uint64(ctr), n, 1, dtype=jd)
+    x_t, c_t = trng.module_rng(1, ctr, n, 1, dtype=td, device="cpu")
+    assert x_t.dtype == td and tuple(x_t.shape) == (n,)
+    assert c_t == int(c_j) == ctr + n + 1
+    atol = 4e-6 if dtype == "float32" else 5e-7
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=0,
+                               atol=atol)

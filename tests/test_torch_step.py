@@ -293,10 +293,19 @@ def test_unported_gate_raises(mid):
     """A gate that would reach a module that is not ported raises,
     naming it."""
     setup, _, (ta, tc) = mid
-    ctl = setup["tctl"].replace(conv_cape=0.0)
-    with pytest.raises(NotImplementedError, match="module_convection"):
-        tpipe.run_timestep(ctl, setup["tclim"], setup["tmet"], ta, tc,
-                           720.0, pack=setup["tpack"])
+    # (convection, mixing, boundary conditions, the chemistry and the
+    # deposition are ported: tests/test_torch_chem*.py)
+    for kw, match in ((dict(turb_pbl_scheme=1), "module_diff_pbl"),
+                      (dict(qnt_name=("t", "m", "rp", "rhop")),
+                       "module_sedi"),
+                      (dict(radio_decay=1), "module_radio_decay"),
+                      (dict(kpp_chem=1), "module_kpp_chem")):
+        ctl = setup["tctl"].replace(**kw)
+        # the KPP gate sits on KPP_CHEM alone, not on its interval
+        flags = tpipe.StepFlags(do_kpp=False)
+        with pytest.raises(NotImplementedError, match=match):
+            tpipe.run_timestep(ctl, setup["tclim"], setup["tmet"], ta, tc,
+                               720.0, flags=flags, pack=setup["tpack"])
     # the zeta/eta and model-level advection, with and without a pack
     for vert in (1, 2, 3):
         ctl = setup["tctl"].replace(advect_vert_coord=vert)

@@ -1,8 +1,8 @@
 """The whole path from files: ``run_trac`` in both packages.
 
-The golden control files switch on chemistry, mixing, boundary
-conditions and dry deposition, which are not ported; so the test writes
-its own control file (transport, diffusion, decay, meteo sampling with
+The golden control files switch on the chemistry step
+(tests/test_torch_golden.py runs them); this file writes its own control
+file (transport, diffusion, decay, meteo sampling with
 the climatological quantities) and runs both packages on a copy of the
 first three met files of ``parity/golden_long/data`` (two hours apart)
 with a seeded particle file, 65 steps of 120 s across the met swap at
@@ -338,11 +338,6 @@ def test_cli_usage_and_defaults(tmp_path, capsys):
     (("STAT_BASENAME", "station"), "StationWriter"),
     (("VTK_BASENAME", "vtk"), "VtkWriter"),
     (("MET_TYPE", "1"), "bin_io"),
-    (("OH_CHEM_REACTION", "2"), "module_chem_grid"),
-    (("MIXING_TROP", "1e-3", "MIXING_STRAT", "1e-6"), "module_mixing"),
-    (("DRY_DEPO_VDEP", "0.15"), "module_dry_depo"),
-    (("BOUND_P0", "1e10", "BOUND_P1", "-1e10", "BOUND_LAT0", "-90",
-      "BOUND_LAT1", "90"), "module_bound_cond"),
     (("ATM_TYPE_OUT", "3"), "write_atm_clams"),
 ])
 def test_unported_gate_raises_by_name(fcase, args, match):
@@ -350,6 +345,40 @@ def test_unported_gate_raises_by_name(fcase, args, match):
         trun_trac(fcase, "trac.ctl", "atm_in.tab",
                   args + ("ATM_BASENAME", "gate", "T_STOP",
                           f"{T0 + 240.0:.2f}"), device="cpu")
+
+
+@pytest.mark.parametrize("args", [
+    ("OH_CHEM_REACTION", "2"),
+    ("MIXING_TROP", "1e-3", "MIXING_STRAT", "1e-6"),
+    ("DRY_DEPO_VDEP", "0.15"),
+    ("BOUND_P0", "1e10", "BOUND_P1", "-1e10", "BOUND_LAT0", "-90",
+     "BOUND_LAT1", "90"),
+], ids=["chem_grid", "mixing", "dry_depo", "bound_cond"])
+def test_ported_module_runs_and_agrees_with_jax(tmp_path, args):
+    """Control parameters that reach the chemistry grid and the OH
+    chemistry, the mixing, the dry deposition and the boundary
+    conditions: ``run_trac`` runs to the end in both packages (float64,
+    the case of ``make_case``, three steps) and the final states agree
+    at the tolerances of test_run_trac_states_agree_with_jax.  (These
+    were the cases of test_unported_gate_raises_by_name while the modules
+    raised; tests/test_torch_chem.py holds each module's effect.)"""
+    run = args + ("ATM_BASENAME", "-", "T_STOP", f"{T0 + 240.0:.2f}")
+    jdir = make_case(tmp_path / "jax")
+    tdir = make_case(tmp_path / "torch")
+    ja = jrun_trac(jdir, "trac.ctl", "atm_in.tab", list(run)).atm
+    tsim = trun_trac(tdir, "trac.ctl", "atm_in.tab", run, device="cpu")
+    ta = tsim.atm
+    assert tsim.timers.as_dict()["RUN_TIMESTEP"]["count"] == 3
+    np.testing.assert_array_equal(ta.time.numpy(), np.asarray(ja.time))
+    for name in ("lon", "lat"):
+        np.testing.assert_allclose(getattr(ta, name).numpy(),
+                                   np.asarray(getattr(ja, name)), rtol=0,
+                                   atol=ATOL_DEG[True], err_msg=name)
+    np.testing.assert_allclose(ta.p.numpy(), np.asarray(ja.p), rtol=1e-6,
+                               atol=0)
+    for q in QNT:
+        np.testing.assert_allclose(ta.q[q].numpy(), np.asarray(ja.q[q]),
+                                   rtol=1e-5, atol=1e-12, err_msg=q)
 
 
 def test_checkpoint_raises_by_name(fcase):
