@@ -67,7 +67,31 @@ non-zero code and prints no result.  Phases, each of which must pass:
 12. probes: ``mptrac_tpu_torch.perf.probe lane grid small`` (kernels
     P1-P3) driven through its entry point with the counts zeroed before
     and read after, then each kernel against its plain version on every
-    element at 2,000,000 and at N parcels, with times and bounds.
+    element at 2,000,000 and at N parcels, with times and bounds;
+13. output path: ``tools.trac`` from files on the flagship case with all
+    seven output writers as a user at this size runs them (a global
+    1-degree netCDF grid of 360x180x50 cells, the 32 ensemble members,
+    every 100th parcel to VTK, CSI, profiles and samples against 10,000
+    observations, golden_chem's station), float32 on the fused path, 21
+    steps from 0 to 3600 s: each writer's milliseconds a call (CUDA
+    events), ``WRITE_OUTPUT`` a step, the step without its output
+    beside trac_path's, the bytes of each file and peak memory; every
+    file is checked;
+14. writers against CPU: the same case at 2048 parcels, 10 steps, on the
+    card and on the CPU in float64: every file at the tolerances of
+    tests/test_full_parity.py, counts exactly;
+15. golden_chem: the port's ``run_trac`` on the card in float64 on a
+    copy of ``parity/golden_chem`` with every writer, each particle,
+    grid, ensemble, CSI, station, profile, sample and VTK file held to
+    the golden files;
+16. zeta path: ``tools.trac`` with diabatic zeta advection from two
+    CLaMS-convention met files at 360x181x61 model levels (the recipe of
+    parity/mint_zeta.sh), N parcels, float32 on the unfused kernels, 2 +
+    10 steps: ms a step, a column search and a field, the K2 and K5
+    launches, the met files' seconds, peak memory;
+17. golden_zeta: ``run_trac`` on the card in float64 on a copy of
+    ``parity/golden_zeta``, held at tests/test_zeta_parity.py's
+    tolerances.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1135,6 +1159,18 @@ T_TRAC_START = 1800.0
 T_TRAC_STOP = 4500.0
 
 
+def disk_cut(tmp, n, per_parcel, tag):
+    """Parcels that the temporary space holds (a multiple of 2^21)."""
+    free = shutil.disk_usage(tmp).free
+    fit = int((0.9 * free - 2e9) // per_parcel) // (1 << 21) * (1 << 21)
+    n_run = min(n, fit)
+    if n_run < (1 << 21) and n_run < n:
+        raise RuntimeError(f"{tag}: {free} bytes of temporary space hold no "
+                           "particle file")
+    return n_run, (f" (cut from {n}: {free} bytes free)" if n_run < n
+                   else "")
+
+
 def phase_trac_path(torch, n):
     """``tools.trac`` from files on the card at full size, float32 state,
     the fused path, across one met swap."""
@@ -1151,13 +1187,7 @@ def phase_trac_path(torch, n):
     try:
         # the particle file in and out (6 float64 columns each) and the
         # met files must fit the temporary space
-        per_parcel = 2 * 6 * 8
-        free = shutil.disk_usage(tmp).free
-        fit = int((0.9 * free - 2e9) // per_parcel) // (1 << 21) * (1 << 21)
-        n_run = min(n, fit)
-        if n_run < (1 << 21) and n_run < n:
-            raise RuntimeError(f"trac path: {free} bytes of temporary space "
-                               "hold no particle file")
+        n_run, cut = disk_cut(tmp, n, 2 * 6 * 8, "trac path")
         t0 = time.time()
         dirlist = flagship.write_case(
             tmp, n_run, GRID, T_TRAC_START, T_TRAC_STOP, int(SORT_DT),
@@ -1165,9 +1195,8 @@ def phase_trac_path(torch, n):
         setup_s = time.time() - t0
         sizes = {f: os.path.getsize(os.path.join(tmp, f))
                  for f in sorted(os.listdir(tmp))}
-        say(f"[trac] {n_run} parcels"
-            + (f" (cut from {n}: {free} bytes free)" if n_run < n else "")
-            + f"; files written in {setup_s:.1f} s: " + ", ".join(
+        say(f"[trac] {n_run} parcels{cut}; files written in "
+            f"{setup_s:.1f} s: " + ", ".join(
                 f"{k} {v / 1e6:.1f} MB" for k, v in sizes.items()))
 
         # measurement only: CUDA events around every step of the loop and
@@ -1308,7 +1337,9 @@ def phase_trac_path(torch, n):
             "resorts": sim.nsorts,
             "peak_memory_allocated_bytes": peak, "launches": counts,
             "mass_rel_err": m_err, "timers": timers}}))
-        return counts
+        return {"ms_per_step": float(np.mean(plain)),
+                "ms_per_step_min_max": [min(plain), max(plain)],
+                "peak": peak}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1371,6 +1402,63 @@ def phase_trac_vs_cpu(torch):
 
 # ------------------------------------------------------ golden_long on card
 
+def clim_overrides(root):
+    """The climatology files of the golden control files, in this
+    package (tests/test_torch_golden.py ``CLIM_OVERRIDES``)."""
+    clim = os.path.join(root, "mptrac_tpu_torch", "data")
+    radical = os.path.join(clim, "clams_radical_species_vmr.nc")
+    return ("CLIM_PHOTO", os.path.join(clim, "clams_photolysis_rates.nc"),
+            "CLIM_OH_FILENAME", radical,
+            "CLIM_H2O2_FILENAME", os.path.join(clim, "cams_H2O2.nc"),
+            "CLIM_HO2_FILENAME", radical, "CLIM_O1D_FILENAME", radical,
+            "CLIM_CCL3F_TIMESERIES", os.path.join(clim, "noaa_gml_cfc11.tab"))
+
+
+def run_golden_copy(torch, gold, wanted, args):
+    """The port's ``run_trac`` on the card in float64 on a temporary copy
+    of the files ``wanted(name)`` of a golden set; returns (temporary
+    directory, its data directory, the simulation, seconds)."""
+    from mptrac_tpu_torch.sim import run_trac
+    tmp = tempfile.mkdtemp(prefix="mptrac_golden_")
+    data = os.path.join(tmp, "data")
+    os.makedirs(data)
+    for f in sorted(os.listdir(gold)):
+        if wanted(f):
+            shutil.copy(os.path.join(gold, f), data)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.time()
+        sim = run_trac("data", "trac.ctl", args[0], args[1:], device="cuda",
+                       dtype=torch.float64)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    finally:
+        os.chdir(cwd)
+    return tmp, data, sim, seconds
+
+
+def hold_tab(tag, ours_path, ref_path, col_tol, default):
+    """A golden text file held per column, as tests/test_full_parity.py's
+    ``assert_tab_close``; returns the largest difference of each
+    column."""
+    import numpy as np
+    from test_full_parity import load_tab
+    ours, ref = load_tab(ours_path), load_tab(ref_path)
+    if ours.shape != ref.shape:
+        raise RuntimeError(f"{tag}: shape {ours.shape} vs {ref.shape}")
+    errs = []
+    for c in range(ref.shape[1] if ref.ndim == 2 else 0):
+        rtol, atol = col_tol.get(c, default)
+        errs.append(float(np.nanmax(np.abs(ours[:, c] - ref[:, c]))))
+        if not np.allclose(ours[:, c], ref[:, c], rtol=rtol, atol=atol,
+                           equal_nan=True):
+            raise RuntimeError(f"{tag} column {c}: max abs diff "
+                               f"{errs[-1]:.3e} beyond rtol {rtol} atol "
+                               f"{atol}")
+    return errs
+
+
 def phase_golden_long(torch):
     """The port's ``run_trac`` on a temporary copy of
     ``parity/golden_long`` (the reference model's 1020 steps of the
@@ -1383,37 +1471,16 @@ def phase_golden_long(torch):
     tolerance checks."""
     import numpy as np
 
-    from mptrac_tpu_torch.sim import run_trac
+    from test_full_parity import load_tab
+    from test_long_parity import STAGES
 
     root = os.path.dirname(os.path.abspath(__file__))
     gold = os.path.join(root, "parity", "golden_long", "data")
-    sys.path.insert(0, os.path.join(root, "tests"))
-    from test_full_parity import load_tab
-    from test_long_parity import STAGES
-    clim = os.path.join(root, "mptrac_tpu_torch", "data")
-    overrides = (
-        "CLIM_PHOTO", os.path.join(clim, "clams_photolysis_rates.nc"),
-        "CLIM_OH_FILENAME", os.path.join(clim, "clams_radical_species_vmr.nc"),
-        "CLIM_H2O2_FILENAME", os.path.join(clim, "cams_H2O2.nc"),
-        "CLIM_HO2_FILENAME", os.path.join(clim, "clams_radical_species_vmr.nc"),
-        "CLIM_O1D_FILENAME", os.path.join(clim, "clams_radical_species_vmr.nc"),
-        "CLIM_CCL3F_TIMESERIES", os.path.join(clim, "noaa_gml_cfc11.tab"))
-    tmp = tempfile.mkdtemp(prefix="mptrac_golden_")
-    cwd = os.getcwd()
+    tmp, data, sim, seconds = run_golden_copy(
+        torch, gold, lambda f: f in ("trac.ctl", "atm_split.tab")
+        or f.startswith("met_"),
+        ("atm_split.tab", "ATM_BASENAME", "atm") + clim_overrides(root))
     try:
-        data = os.path.join(tmp, "data")
-        os.makedirs(data)
-        for f in sorted(os.listdir(gold)):
-            if f in ("trac.ctl", "atm_split.tab") or f.startswith("met_"):
-                shutil.copy(os.path.join(gold, f), data)
-        os.chdir(tmp)
-        t0 = time.time()
-        sim = run_trac("data", "trac.ctl", "atm_split.tab",
-                       ("ATM_BASENAME", "atm") + overrides, device="cuda",
-                       dtype=torch.float64)
-        torch.cuda.synchronize()
-        seconds = time.time() - t0
-        os.chdir(cwd)
         nsteps = sim.timers.as_dict()["RUN_TIMESTEP"]["count"]
         if sim.atm.lon.device.type != "cuda" or nsteps != 1021:
             raise RuntimeError(f"golden_long: {nsteps} steps on "
@@ -1421,21 +1488,9 @@ def phase_golden_long(torch):
         stages = {}
         for stamp, step, col_tol, default in STAGES:
             f = f"atm_{stamp}.tab"
-            ours = load_tab(os.path.join(data, f))
-            ref = load_tab(os.path.join(gold, f))
-            if ours.shape != ref.shape:
-                raise RuntimeError(f"golden_long {f}: shape {ours.shape} vs "
-                                   f"{ref.shape}")
-            errs = []
-            for c in range(ref.shape[1]):
-                rtol, atol = col_tol.get(c, default)
-                errs.append(float(np.max(np.abs(ours[:, c] - ref[:, c]))))
-                if not np.allclose(ours[:, c], ref[:, c], rtol=rtol,
-                                   atol=atol, equal_nan=True):
-                    raise RuntimeError(
-                        f"golden_long {f} column {c}: max abs diff "
-                        f"{errs[-1]:.3e} beyond rtol {rtol} atol {atol}")
-            stages[f"step{step}"] = {"max_abs_err_by_column": errs}
+            stages[f"step{step}"] = {"max_abs_err_by_column": hold_tab(
+                f"golden_long {f}", os.path.join(data, f),
+                os.path.join(gold, f), col_tol, default)}
         ours = load_tab(os.path.join(data, f"atm_{STAGES[-1][0]}.tab"))
         ref = load_tab(os.path.join(gold, f"atm_{STAGES[-1][0]}.tab"))
         med = {"lon": float(np.median(np.abs(ours[:, 2] - ref[:, 2]))),
@@ -1444,12 +1499,895 @@ def phase_golden_long(torch):
         if not (med["lon"] < 0.5 and med["lat"] < 0.5 and med["z"] < 0.1):
             raise RuntimeError(f"golden_long: median divergence {med}")
     finally:
-        os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
     say(json.dumps({"golden_long": {
         "steps": nsteps - 1, "n_parcels": sim.atm.np, "dtype": "float64",
         "seconds": seconds, "met_files": len(sim.met.reads),
         "stages": stages, "median_divergence_step1020": med}}))
+
+
+# ------------------------------------------------------------ the writers
+
+#: the output path: the flagship from files with every output writer,
+#: 21 steps from 0 to 3600 s; the sorts of SORT_DT 2700 fall on the first
+#: step and one inside
+OUT_T_STOP = 3600.0
+OUT_SORT_DT = 2700
+OUT_QNT = ("t", "m", "stat", "ens")
+#: uniform H2O and O3 of the met (the reference wind tool's WIND_Q and
+#: WIND_O3), which the profile writer interpolates
+OUT_WIND_Q = 1e-3
+OUT_WIND_O3 = 3e-7
+N_OBS = 10_000
+WRITERS = ("GridWriter", "EnsWriter", "CsiWriter", "ProfWriter",
+           "SampleWriter", "StationWriter", "VtkWriter")
+
+
+def write_obs(path, n, t0, t1, seed=0):
+    """``n`` observations (ASCII, ``OBS_TYPE 0``) drawn uniformly over the
+    flagship parcels' range (lon, lat, altitude of 200-900 hPa) and the
+    run's time, sorted by time."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    z0, z1 = (7.0 * math.log(1013.25 / p) for p in (900.0, 200.0))
+    rows = np.stack([rng.uniform(t0, t1, n), rng.uniform(z0, z1, n),
+                     rng.uniform(-180.0, 180.0, n),
+                     rng.uniform(-60.0, 60.0, n),
+                     10.0 ** rng.uniform(-9.0, -3.0, n)], axis=-1)
+    rows = rows[np.argsort(rows[:, 0], kind="stable")]
+    np.savetxt(path, rows, fmt="%.3f %.6f %.6f %.6f %.6e")
+    return path
+
+
+def output_args(obs, dt_out, fast):
+    """Control parameters of every writer, as a user of the global
+    flagship runs them: a 1-degree netCDF grid of 360x180x50 cells, the
+    32 ensemble members, every 100th parcel to VTK, CSI, profiles and
+    samples against one observation file (their grids on their
+    defaults, SAMPLE_DZ of golden_chem) and golden_chem's station."""
+    dt = str(int(dt_out))
+    return ("TPU_FAST", fast, "MOLMASS", "64.066", "ATM_BASENAME", "-",
+            "GRID_BASENAME", "grid", "GRID_TYPE", "1", "GRID_DT_OUT", dt,
+            "GRID_LON0", "-180", "GRID_LON1", "180", "GRID_NX", "360",
+            "GRID_LAT0", "-90", "GRID_LAT1", "90", "GRID_NY", "180",
+            "GRID_Z0", "0", "GRID_Z1", "50", "GRID_NZ", "50",
+            "ENS_BASENAME", "ens", "ENS_DT_OUT", dt,
+            "VTK_BASENAME", "vtk", "VTK_STRIDE", "100", "VTK_DT_OUT", dt,
+            "CSI_BASENAME", "csi", "CSI_OBSFILE", obs, "CSI_DT_OUT", dt,
+            "PROF_BASENAME", "prof", "PROF_OBSFILE", obs,
+            "SAMPLE_BASENAME", "sample", "SAMPLE_OBSFILE", obs,
+            "SAMPLE_DZ", "100", "OBS_TYPE", "0",
+            "STAT_BASENAME", "station", "STAT_LON", "-72",
+            "STAT_LAT", "-40.5", "STAT_R", "200")
+
+
+def tab_rows(path):
+    """Data rows of a text output as a float array ``[rows, cols]``."""
+    import numpy as np
+    rows = [[float(x) for x in line.split()] for line in open(path)
+            if line.strip() and not line.startswith("#")]
+    return np.array(rows) if rows else np.zeros((0, 0))
+
+
+def vtk_points(path):
+    """The ``POINTS`` count of a VTK file."""
+    with open(path) as f:
+        for line in f:
+            if line.startswith("POINTS"):
+                return int(line.split()[1])
+    return -1
+
+
+class HostProbe:
+    """What the host does while a wrapped function runs, call by call:
+    its wall time, the calling thread's CPU time, its involuntary
+    context switches, the time in Python's garbage collector, the
+    allocator's ``cudaMalloc`` calls, and the card's SM clock and power
+    sampled every 20 ms by ``nvidia-smi`` (in the background until
+    ``stop()``).  A step that takes longer on the card than its peers
+    shows here whether the host was held (switches, collector, CPU time
+    far below the wall time), the allocator called ``cudaMalloc``, or the
+    card ran at a lower clock."""
+
+    def __init__(self, torch):
+        import gc
+        import resource
+        self.torch, self.gc, self.resource = torch, gc, resource
+        self.calls, self.saved, self.gc_spans, self._gc0 = [], None, [], 0.0
+        gc.callbacks.append(self._on_gc)
+        self.log = tempfile.TemporaryFile("w+")
+        self.smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=self.log, stderr=subprocess.DEVNULL, text=True)
+        self.samples = []
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._gc0 = time.time()
+        else:
+            self.gc_spans.append((self._gc0, time.time()))
+
+    def wrap(self, owner, name):
+        fn = getattr(owner, name)
+        self.saved = (owner, name, fn)
+        torch, res = self.torch, self.resource
+
+        def probed(*a, **k):
+            r0 = res.getrusage(res.RUSAGE_THREAD)
+            d0 = torch.cuda.memory_stats().get("num_device_alloc", -1)
+            w0, c0 = time.time(), time.thread_time()
+            out = fn(*a, **k)
+            w1, c1 = time.time(), time.thread_time()
+            d1 = torch.cuda.memory_stats().get("num_device_alloc", -1)
+            r1 = res.getrusage(res.RUSAGE_THREAD)
+            self.calls.append(dict(w0=w0, w1=w1, cpu_ms=1e3 * (c1 - c0),
+                                   nivcsw=r1.ru_nivcsw - r0.ru_nivcsw,
+                                   device_allocs=d1 - d0))
+            return out
+        setattr(owner, name, probed)
+
+    def stop(self):
+        if self.saved is not None:
+            setattr(*self.saved)
+            self.saved = None
+        if self._on_gc in self.gc.callbacks:
+            self.gc.callbacks.remove(self._on_gc)
+        if self.log.closed:
+            return
+        if self.smi.poll() is None:
+            self.smi.terminate()
+        self.smi.wait(timeout=10)
+        self.log.seek(0)
+        lines = self.log.read().splitlines()
+        self.log.close()
+        for line in lines:
+            f = [x.strip() for x in line.split(",")]
+            try:
+                ts = time.mktime(time.strptime(f[0].split(".")[0],
+                                               "%Y/%m/%d %H:%M:%S"))
+                ts += float("0." + f[0].split(".")[1])
+                self.samples.append((ts, float(f[1]), float(f[2])))
+            except (ValueError, IndexError):
+                continue
+
+    def summary(self, device_ms):
+        """Per call: lists of the wall ms, CPU ms, involuntary switches,
+        collector ms, ``cudaMalloc`` calls, and the lowest and mean SM
+        clock (MHz) and the mean power (W) over the card's time of the
+        call (from its start on the host: the card is idle before it)."""
+        out = {k: [] for k in ("wall_ms", "cpu_ms", "involuntary_switches",
+                               "gc_ms", "device_allocs", "sm_mhz_min",
+                               "sm_mhz_mean", "power_w_mean")}
+        for c, ms in zip(self.calls, device_ms):
+            out["wall_ms"].append(round(1e3 * (c["w1"] - c["w0"]), 3))
+            out["cpu_ms"].append(round(c["cpu_ms"], 3))
+            out["involuntary_switches"].append(c["nivcsw"])
+            out["gc_ms"].append(round(1e3 * sum(
+                max(0.0, min(b, c["w1"]) - max(a, c["w0"]))
+                for a, b in self.gc_spans), 3))
+            out["device_allocs"].append(c["device_allocs"])
+            on = [s for s in self.samples
+                  if c["w0"] <= s[0] <= c["w0"] + ms / 1e3]
+            out["sm_mhz_min"].append(min((s[1] for s in on), default=None))
+            out["sm_mhz_mean"].append(
+                round(sum(s[1] for s in on) / len(on), 1) if on else None)
+            out["power_w_mean"].append(
+                round(sum(s[2] for s in on) / len(on), 1) if on else None)
+        return out
+
+
+class Timing:
+    """CUDA events around calls of functions that are looked up by name
+    at each call (module functions, methods): ``wrap(owner, name, tag)``
+    replaces ``owner.name`` until ``restore()``; ``ms(tag)`` lists the
+    milliseconds of every call, ``calls`` the (tag, step) of each."""
+
+    def __init__(self, torch):
+        self.torch, self.saved, self.events = torch, [], []
+        self.step = -1
+
+    def wrap(self, owner, name, tag):
+        fn = getattr(owner, name)
+        self.saved.append((owner, name, fn))
+        torch, events = self.torch, self.events
+
+        def timed(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            events.append((tag, self.step, e0, e1))
+            return out
+        setattr(owner, name, timed)
+
+    def restore(self):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+        self.saved = []
+
+    def ms(self, tag, step=None):
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for t, s, a, b in self.events
+                if t == tag and (step is None or s == step)]
+
+
+def phase_output_path(torch, n, trac_summary):
+    """``tools.trac`` from files on the flagship case with all seven
+    writers at full size (float32, the fused path, 21 steps from 0 to
+    3600 s, one sort inside): each writer's milliseconds a call by CUDA
+    events, ``WRITE_OUTPUT`` a step, the step without its output against
+    trac_path's, the files' bytes and contents, peak memory."""
+    import numpy as np
+
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch import sim as simmod
+    from mptrac_tpu_torch.io import output, writers
+    from mptrac_tpu_torch.ops import _cuda
+    from mptrac_tpu_torch.physics import pipeline
+    from mptrac_tpu_torch.tools import trac
+
+    tmp = tempfile.mkdtemp(prefix="mptrac_out_")
+    try:
+        # the particle file in (8 float64 columns); the outputs are small
+        n_run, cut = disk_cut(tmp, n, 8 * 8, "output path")
+        t0 = time.time()
+        obs = write_obs(os.path.join(tmp, "obs.tab"), N_OBS, 0.0, OUT_T_STOP)
+        dirlist = flagship.write_case(
+            tmp, n_run, GRID, 0.0, OUT_T_STOP, OUT_SORT_DT, DT_MET,
+            output_args(obs, OUT_T_STOP, "2"), quantities=OUT_QNT,
+            wind_q=OUT_WIND_Q, wind_o3=OUT_WIND_O3)
+        setup_s = time.time() - t0
+        say(f"[output] {n_run} parcels{cut}; files written in "
+            f"{setup_s:.1f} s")
+
+        tm = Timing(torch)
+        holder = {}
+        advance = simmod.Simulation.advance
+
+        def counted_advance(self, t, write_output=True):
+            holder["sim"] = self
+            tm.step += 1
+            before = (len(self.met.reads), self.nsorts)
+            advance(self, t, write_output)
+            holder.setdefault("quiet", []).append(
+                before == (len(self.met.reads), self.nsorts))
+
+        simmod.Simulation.advance = counted_advance
+        host = HostProbe(torch)
+        host.wrap(pipeline, "run_timestep")
+        tm.wrap(simmod.Simulation, "advance", "step")
+        tm.wrap(pipeline, "run_timestep", "timestep")
+        tm.wrap(output.OutputManager, "write", "write_output")
+        for w in WRITERS:
+            tm.wrap(getattr(writers, w), "write", w)
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()              # the path starts here
+        t0 = time.time()
+        try:
+            rc = trac.main(["trac", dirlist, "trac.ctl", "atm_in.bin",
+                            "--device", "cuda", "--dtype", "float32"])
+        finally:
+            tm.restore()
+            host.stop()
+            simmod.Simulation.advance = advance
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        counts = dict(_cuda.launch_counts)       # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise RuntimeError(f"output path: tools.trac returned {rc}")
+        sim = holder["sim"]
+        nsteps = int(round(OUT_T_STOP / sim.ctl.dt_mod)) + 1
+        step_ms, ts_ms = tm.ms("step"), tm.ms("timestep")
+        wo_ms = tm.ms("write_output")
+        if not (len(step_ms) == len(ts_ms) == len(wo_ms) == nsteps):
+            raise RuntimeError(f"output path: {len(step_ms)} steps, "
+                               f"expected {nsteps}")
+        if (sim.nsorts != 2 or counts["rk_fused_advect"] != nsteps
+                or counts["sfc_interp"] < nsteps):
+            raise RuntimeError(f"output path: {sim.nsorts} sorts, launches "
+                               f"{counts}")
+        # the steps with nothing but the timestep and the per-step
+        # writers: no file read, no sort, no grid/ens/csi/vtk output
+        # (those fall on the first and the last step)
+        ordinary = [i for i in range(1, nsteps - 1) if holder["quiet"][i]]
+        bare = [step_ms[i] - wo_ms[i] for i in ordinary]
+        per_writer = {}
+        for w in WRITERS:
+            calls = tm.ms(w)
+            per_writer[w] = {
+                "calls": len(calls), "ms_mean": float(np.mean(calls)),
+                "ms_max": max(calls),
+                "ms_ordinary_step_mean": float(np.mean(
+                    [sum(tm.ms(w, i)) for i in ordinary])),
+                "ms_last_step": sum(tm.ms(w, nsteps - 1)),
+                "ms_first_step": sum(tm.ms(w, 0))}
+        files = {f: os.path.getsize(os.path.join(tmp, f))
+                 for f in sorted(os.listdir(tmp))
+                 if f.split("_")[0].split(".")[0] in (
+                     "grid", "ens", "vtk", "csi", "prof", "sample",
+                     "station")}
+        result = {
+            "n_parcels": n_run, "n_parcels_asked": n, "grid": list(GRID),
+            "steps": nsteps, "run_s": run_s, "files_written_s": setup_s,
+            "n_obs": N_OBS,
+            "ms_step_without_output": float(np.mean(bare)),
+            "ms_step_without_output_min_max": [min(bare), max(bare)],
+            "ms_step_without_output_by_step": [
+                round(step_ms[i] - wo_ms[i], 3) for i in range(nsteps)],
+            "ordinary_step_indices": ordinary,
+            "ms_run_timestep": float(np.mean([ts_ms[i] for i in ordinary])),
+            "ms_run_timestep_min_max": [min(ts_ms[i] for i in ordinary),
+                                        max(ts_ms[i] for i in ordinary)],
+            "ms_run_timestep_median": float(np.median(
+                [ts_ms[i] for i in ordinary])),
+            "ms_run_timestep_by_step": [round(x, 3) for x in ts_ms],
+            "ms_write_output_by_step": [round(x, 3) for x in wo_ms],
+            "trac_path_ms_per_step": trac_summary["ms_per_step"],
+            "trac_path_ms_per_step_min_max":
+                trac_summary["ms_per_step_min_max"],
+            "ms_write_output_ordinary": float(np.mean(
+                [wo_ms[i] for i in ordinary])),
+            "ms_write_output_ordinary_min_max": [
+                min(wo_ms[i] for i in ordinary),
+                max(wo_ms[i] for i in ordinary)],
+            "ms_write_output_first_step": wo_ms[0],
+            "ms_write_output_last_step": wo_ms[-1],
+            "ordinary_steps": len(ordinary),
+            "write_output_host_s": sim.timers.as_dict()["WRITE_OUTPUT"],
+            "writers": per_writer, "file_bytes": files,
+            "met_files": sim.met.reads,
+            "peak_memory_allocated_bytes": peak,
+            "trac_path_peak_memory_allocated_bytes": trac_summary["peak"],
+            "run_timestep_host_by_step": host.summary(ts_ms),
+            "launches": counts}
+        say(json.dumps({"output_path": result}))
+        check_output_files(tmp, n_run, sim)
+        return result
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_output_files(tmp, n_run, sim):
+    """What every writer's file must show at the end of the output path:
+    every parcel above the ground in the global grid, every parcel in the
+    32 ensemble members, every 100th in the VTK file, a sample row per
+    observation, a CSI row per output, the met's H2O and O3 in the
+    profiles, a station row per flagged parcel."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    stamp = "2000_01_01_01_00_00"
+    # inside the grid by its own float32 arithmetic: (lon + 180) / 1 of a
+    # longitude within 2^-15 deg of 180 rounds to 360, the last edge
+    a = sim.atm
+    z = 7.0 * (1013.25 / a.p).log()
+    inside = int(((z >= 0.0) & (z < 50.0) & ((a.lon + 180.0) < 360.0)
+                  & ((a.lat + 90.0) < 180.0)).sum())
+    nc = netcdf_file(os.path.join(tmp, f"grid_{stamp}.nc"), mmap=False)
+    try:
+        npc = nc.variables["np"][:].astype(np.int64)
+        cd = nc.variables["cd"][:]
+        vmr = nc.variables["vmr_impl"][:]
+        tmean = nc.variables["t_mean"][:]
+        if (int(npc.sum()) != inside or inside < n_run - 1000
+                or npc.shape != (1, 50, 180, 360)):
+            raise RuntimeError(f"output path: grid holds {int(npc.sum())} "
+                               f"parcels in {npc.shape}, expected {inside} "
+                               f"of {n_run}")
+        has = npc > 0
+        if not (np.isfinite(cd[has]).all() and np.isfinite(vmr[has]).all()
+                and (vmr[has] > 0).all()
+                and np.abs(tmean[has] - 280.0).max() < 1e-2):
+            raise RuntimeError("output path: grid cd, vmr_impl or t_mean "
+                               "out of range")
+    finally:
+        nc.close()
+    ens = tab_rows(os.path.join(tmp, f"ens_{stamp}.tab"))
+    if ens.shape[0] != 32 or (ens[:, -1] != n_run // 32).any():
+        raise RuntimeError(f"output path: ensemble rows {ens.shape}, "
+                           f"members {ens[:, -1] if ens.size else None}")
+    for k in (1, 2):
+        pts = vtk_points(os.path.join(tmp, f"vtk_{k:05d}.vtk"))
+        if pts != -(-n_run // 100):
+            raise RuntimeError(f"output path: vtk_{k:05d} has {pts} points")
+    sample = tab_rows(os.path.join(tmp, "sample.tab"))
+    if sample.shape[0] != N_OBS or not (sample[:, 6] > 0).any():
+        raise RuntimeError(f"output path: {sample.shape[0]} sample rows, "
+                           f"expected {N_OBS}")
+    csi = tab_rows(os.path.join(tmp, "csi.tab"))
+    if csi.shape[0] != 2 or not (csi[:, -1] > 0).all():
+        raise RuntimeError(f"output path: CSI rows {csi.shape}")
+    prof = tab_rows(os.path.join(tmp, "prof.tab"))
+    if (prof.shape[0] == 0
+            or np.abs(prof[:, 7] / OUT_WIND_Q - 1.0).max() > 1e-5
+            or np.abs(prof[:, 8] / OUT_WIND_O3 - 1.0).max() > 1e-5
+            or np.abs(prof[:, 5] - 280.0).max() > 1e-2):
+        raise RuntimeError("output path: profile rows without the met's "
+                           "T, H2O or O3")
+    station = tab_rows(os.path.join(tmp, "station.tab"))
+    flagged = int((sim.atm.q["stat"] == 1).sum())
+    if station.shape[0] != flagged or flagged == 0:
+        raise RuntimeError(f"output path: {station.shape[0]} station rows, "
+                           f"{flagged} flagged parcels")
+
+
+#: card against CPU of every writer's file: the tolerances of
+#: tests/test_full_parity.py:168-204 by file, and the columns that count
+#: (parcels, members, contingency counts, observations), held exactly
+OUT_TOLS = {"ens": (1e-2, 1e-6), "csi": (1e-4, 1e-6),
+            "station": (1e-4, 1e-6), "prof": (1e-4, 1e-6),
+            "sample": (1e-4, 1e-6)}
+OUT_COUNT_COLS = {"ens": [-1], "csi": [2, 3, 4, 5, 6, 19], "prof": [10],
+                  "sample": [6]}
+
+
+def compare_outputs(tag, da, db, names):
+    """Every file of ``names`` in ``da`` (card) against ``db`` (CPU);
+    returns the largest difference of each."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    errs = {}
+    for name in names:
+        a, b = os.path.join(da, name), os.path.join(db, name)
+        kind = name.split("_")[0].split(".")[0]
+        if name.endswith(".nc"):
+            na, nb = netcdf_file(a, mmap=False), netcdf_file(b, mmap=False)
+            try:
+                if int(nb.variables["np"][:].sum()) == 0:
+                    raise RuntimeError(f"{tag} {name}: an empty grid")
+                worst = 0.0
+                for var, vb in nb.variables.items():
+                    x = np.asarray(na.variables[var][:], np.float64)
+                    y = np.asarray(vb[:], np.float64)
+                    exact = var == "np"
+                    rtol, atol = (0.0, 0.0) if exact else (1e-4, 1e-9)
+                    if x.shape != y.shape or not np.allclose(
+                            x, y, rtol=rtol, atol=atol, equal_nan=True):
+                        raise RuntimeError(f"{tag} {name}: {var} differs")
+                    d = np.abs(x - y)
+                    worst = max(worst, float(np.nanmax(d)) if d.size else 0)
+                errs[name] = worst
+            finally:
+                na.close()
+                nb.close()
+            continue
+        if name.endswith(".vtk"):
+            from test_full_parity import load_vtk_points
+            x, y = load_vtk_points(a), load_vtk_points(b)
+            rtol, atol = 1e-4, 1e-4
+        else:
+            x, y = tab_rows(a), tab_rows(b)
+            rtol, atol = OUT_TOLS[kind]
+        if x.shape != y.shape:
+            raise RuntimeError(f"{tag} {name}: shape {x.shape} vs {y.shape}")
+        if y.size == 0:
+            errs[name] = 0.0
+            continue
+        for c in OUT_COUNT_COLS.get(kind, []):
+            if not np.array_equal(x[:, c], y[:, c]):
+                raise RuntimeError(f"{tag} {name}: counts in column {c} "
+                                   "differ")
+        if not np.allclose(x, y, rtol=rtol, atol=atol, equal_nan=True):
+            raise RuntimeError(f"{tag} {name}: beyond rtol {rtol} atol "
+                               f"{atol}")
+        errs[name] = float(np.nanmax(np.abs(x - y)))
+    return errs
+
+
+def phase_writers_vs_cpu(torch):
+    """The output path's case at the tests' size (2048 parcels, 36x19x8
+    met, 10 steps with outputs every 900 s), twice:
+
+    - float64 on the exact path through ``run_trac`` on the card and on
+      the CPU: every writer's file agrees at the tolerances of
+      tests/test_full_parity.py, counts exactly.  (In float32 the fused
+      paths of the two devices end a few 1e-4 deg apart, enough to move
+      a parcel across a cell edge; float64 keeps them 1e-7 apart, so a
+      count that differs is the writer's.)
+    - float32 on the fused path (``TPU_FAST 2``) on the card; then every
+      writer, on each device, from that one final state and met pair
+      (copied to the CPU), at the run's last time and one step after
+      it (the state's times moved on by a step), where the grid,
+      ensemble, CSI and VTK outputs fall: the same files at the same
+      tolerances, counts exactly."""
+    import dataclasses
+    import types
+
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch.io.output import OutputManager
+    from mptrac_tpu_torch.sim import run_trac
+
+    def cpu(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.cpu()
+        if isinstance(obj, dict):
+            return {k: cpu(v) for k, v in obj.items()}
+        if dataclasses.is_dataclass(obj):
+            return dataclasses.replace(obj, **{
+                f.name: cpu(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)})
+        return obj
+
+    kinds = ("grid", "ens", "vtk", "csi", "prof", "sample", "station")
+
+    def outputs(d):
+        return sorted(f for f in os.listdir(d)
+                      if f.split("_")[0].split(".")[0] in kinds)
+
+    tmp = tempfile.mkdtemp(prefix="mptrac_wcpu_")
+    result = {"n_parcels": 2048, "steps": 10}
+    try:
+        t_stop = 9 * 180.0
+        obs = write_obs(os.path.join(tmp, "obs.tab"), N_OBS, 0.0,
+                        t_stop + 180.0)
+        sims = {}
+        for dev, sub, dtype, fast in (
+                ("cuda", "card", torch.float64, "0"),
+                ("cpu", "host", torch.float64, "0"),
+                ("cuda", "card32", torch.float32, "2")):
+            d = os.path.join(tmp, sub)
+            os.makedirs(d)
+            flagship.write_case(d, 2048, (36, 19, 8), 0.0, t_stop, 900,
+                                DT_MET, output_args(obs, 900.0, fast),
+                                quantities=OUT_QNT, wind_q=OUT_WIND_Q,
+                                wind_o3=OUT_WIND_O3)
+            sims[sub] = run_trac(d, "trac.ctl", "atm_in.bin", device=dev,
+                                 dtype=dtype)
+        names = outputs(os.path.join(tmp, "host"))
+        if outputs(os.path.join(tmp, "card")) != names or len(names) != 10:
+            raise RuntimeError(f"writers vs CPU: files {names}")
+        errs = compare_outputs("writers vs CPU", os.path.join(tmp, "card"),
+                               os.path.join(tmp, "host"), names)
+        if not torch.equal(sims["card"].atm.q["stat"].cpu(),
+                           sims["host"].atm.q["stat"]):
+            raise RuntimeError("writers vs CPU: station flags differ")
+        result["float64"] = {"files": names, "max_abs_err": errs}
+
+        sim = sims["card32"]
+        one = {"card32_out": (sim.atm, sim.met.pair),
+               "host32_out": (cpu(sim.atm), cpu(sim.met.pair))}
+        for sub, (atm, met) in one.items():
+            d = os.path.join(tmp, sub)
+            os.makedirs(d)
+            om = OutputManager(d, sim.ctl)
+            for t in (t_stop, t_stop + 180.0):
+                om.write(types.SimpleNamespace(pair=met), atm, t)
+                atm = atm.replace(time=atm.time + 180.0)
+            om.close()
+            one[sub] = atm
+        names32 = outputs(os.path.join(tmp, "host32_out"))
+        if (outputs(os.path.join(tmp, "card32_out")) != names32
+                or len(names32) != 7):
+            raise RuntimeError(f"writers vs CPU, float32: files {names32}")
+        errs32 = compare_outputs(
+            "writers vs CPU, float32", os.path.join(tmp, "card32_out"),
+            os.path.join(tmp, "host32_out"), names32)
+        if not torch.equal(one["card32_out"].q["stat"].cpu(),
+                           one["host32_out"].q["stat"]):
+            raise RuntimeError("writers vs CPU, float32: station flags "
+                               "differ")
+        result["float32_one_state"] = {"files": names32,
+                                       "max_abs_err": errs32}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(json.dumps({"writers_vs_cpu": result}))
+
+
+# ----------------------------------------------------- golden_chem on card
+
+#: the writers of tests/test_full_parity.py's chem_run
+CHEM_WRITERS = (
+    "GRID_BASENAME", "grid", "ENS_BASENAME", "ens",
+    "STAT_BASENAME", "station",
+    "CSI_BASENAME", "csi", "CSI_OBSFILE", "data/obs.tab",
+    "PROF_BASENAME", "prof", "PROF_OBSFILE", "data/obs.tab",
+    "SAMPLE_BASENAME", "sample", "SAMPLE_OBSFILE", "data/obs.tab",
+    "VTK_BASENAME", "atm")
+
+
+def phase_golden_chem(torch):
+    """The port's ``run_trac`` on the card in float64 on a temporary copy
+    of ``parity/golden_chem`` (60 steps of the chemistry configuration,
+    2000 parcels) with every writer of tests/test_full_parity.py's
+    chem_run: every particle file (with the station flag), grid,
+    ensemble, CSI, station, profile, sample and VTK file held to the
+    golden files at that test's tolerances."""
+    import numpy as np
+    from test_full_parity import load_vtk_points
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    gold = os.path.join(root, "parity", "golden_chem", "data")
+    tmp, data, sim, seconds = run_golden_copy(
+        torch, gold, lambda f: f in ("trac.ctl", "atm_split.tab", "obs.tab")
+        or f.startswith("met_"),
+        ("atm_split.tab", "ATM_BASENAME", "atm") + CHEM_WRITERS
+        + clim_overrides(root))
+    try:
+        nsteps = sim.timers.as_dict()["RUN_TIMESTEP"]["count"]
+        if sim.atm.lon.device.type != "cuda" or nsteps != 61:
+            raise RuntimeError(f"golden_chem: {nsteps} steps on "
+                               f"{sim.atm.lon.device}")
+        pos = {0: (0, 0), 1: (0, 1e-5), 2: (0, 1e-5), 3: (0, 1e-5)}
+        tols = {"atm": (pos, (1e-4, 1e-9)), "grid": ({}, (1e-4, 1e-9)),
+                "ens": ({}, (1e-2, 1e-6)), "csi": ({}, (1e-4, 1e-6)),
+                "station": ({}, (1e-4, 1e-6)), "prof": ({}, (1e-4, 1e-6)),
+                "sample": ({}, (1e-4, 1e-6))}
+        held = {}
+        names = sorted(f for f in os.listdir(gold) if f.endswith(".tab")
+                       and f.split("_")[0].split(".")[0] in tols
+                       and f not in ("atm_init.tab", "atm_split.tab"))
+        for f in names:
+            kind = f.split("_")[0].split(".")[0]
+            errs = hold_tab(f"golden_chem {f}", os.path.join(data, f),
+                            os.path.join(gold, f), *tols[kind])
+            held[f] = max(errs) if errs else 0.0
+        stat = tab_rows(os.path.join(data, "atm_2011_06_05_02_00_00.tab"))
+        if not (stat[:, 11] == 1).any():
+            raise RuntimeError("golden_chem: no station flag set")
+        for k in (1, 2, 3):
+            f = f"atm_{k:05d}.vtk"
+            x = load_vtk_points(os.path.join(data, f))
+            y = load_vtk_points(os.path.join(gold, f))
+            if x.shape != y.shape or not np.allclose(x, y, rtol=1e-4,
+                                                     atol=1e-4):
+                raise RuntimeError(f"golden_chem {f}: points differ")
+            held[f] = float(np.abs(x - y).max())
+        if len(held) != 26:
+            raise RuntimeError(f"golden_chem: {len(held)} files held, "
+                               "expected 26")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(json.dumps({"golden_chem": {
+        "steps": nsteps - 1, "n_parcels": sim.atm.np, "dtype": "float64",
+        "seconds": seconds, "files_held": len(held),
+        "max_abs_err_by_file": held}}))
+
+
+# ---------------------------------------------------------- the zeta path
+
+#: CLaMS-convention met of parity/mint_zeta.sh at the flagship's size:
+#: 360x181 columns of 61 model levels, two snapshots 6 h apart
+ZETA_GRID = (360, 181, 61)
+ZETA_T0 = 520646400.0            # 2016-07-01 00:00 UTC
+ZETA_STEPS = 12                  # 2 warm-up + 10 timed
+
+
+def write_clams_met(path, tsec, hh, nx, ny, nz):
+    """One CLaMS-convention met file by the recipe of
+    parity/mint_zeta.sh (dims (time, lon, lat, lev); PRESS, T, U, V, W,
+    ZETA, ZETA_DOT_TOT, GPH, PS), at ``nx`` x ``ny`` columns of ``nz``
+    model levels; returns its zeta columns."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    H0, P0, G0 = 7.0, 1013.25, 9.80665
+    lon = np.arange(nx) * (360.0 / nx)
+    lat = -90.0 + np.arange(ny) * (180.0 / (ny - 1))
+    lev = np.arange(1, nz + 1, dtype=np.float64)
+    sigma = np.exp(np.linspace(np.log(0.995), np.log(0.001), nz))
+    amp = 1.0 + 0.1 * (hh / 6.0)
+    la = np.broadcast_to(lat[None, :, None] * np.pi / 180.0,
+                         (nx, ny, nz))[None]
+    ps2 = 1013.25 * (1.0 - 0.01 * np.sin(2 * la[..., 0]))
+    press = ps2[..., None] * sigma[None, None, None, :]
+    tt = 210.0 + 70.0 * (np.clip(press, 1e-3, None) / P0) ** 0.28
+    u = amp * 35.0 * np.cos(la) * (0.5 + 0.5 * (1.0 - sigma)[None, None,
+                                                             None, :])
+    v = amp * 3.0 * np.sin(2 * la) * np.ones_like(press)
+    zeta = tt * (1000.0 / press) ** 0.286
+    zdot = amp * (0.5 - 1.0 * (1.0 - sigma))[None, None, None, :] \
+        * np.ones_like(press)
+    gph = H0 * np.log(P0 / press) * 1000.0 * G0
+    out = netcdf_file(path, "w")
+    try:
+        out.createDimension("time", 1)
+        out.createDimension("lon", nx)
+        out.createDimension("lat", ny)
+        out.createDimension("lev", nz)
+        for name, arr, dims in (("time", np.array([tsec]), ("time",)),
+                                ("lev", lev, ("lev",)),
+                                ("lat", lat, ("lat",)),
+                                ("lon", lon, ("lon",))):
+            out.createVariable(name, np.float64, dims)[:] = arr
+        dims4 = ("time", "lon", "lat", "lev")
+        for name, arr in (("PRESS", press), ("T", tt), ("U", u), ("V", v),
+                          ("W", np.zeros_like(press)), ("ZETA", zeta),
+                          ("ZETA_DOT_TOT",
+                           zdot / 0.00001157407 * (1 / 86400.0)),
+                          ("GPH", gph)):
+            out.createVariable(name, np.float32, dims4)[:] = \
+                arr.astype(np.float32)
+        out.createVariable("PS", np.float32, ("time", "lon", "lat"))[:] = \
+            (ps2 * 100.0).astype(np.float32)
+    finally:
+        out.close()
+    return zeta[0].astype(np.float32)
+
+
+def zeta_ctl(root, metbase, t_stop):
+    """golden_zeta's control file with the flagship's diffusion
+    (DIFFUSION 1 and the default turbulence; the golden zeroes it only to
+    isolate the advection), quantities m and zeta, the unfused kernels
+    (TPU_FAST 1), a binary particle file and no particle output."""
+    skip = ("TURB_", "NQ", "QNT_NAME", "METBASE", "T_STOP", "ATM_DT_OUT")
+    lines = [line.strip() for line in open(os.path.join(
+        root, "parity", "golden_zeta", "data", "trac.ctl"))
+        if line.strip() and not line.startswith(skip)]
+    return lines + ["NQ = 2", "QNT_NAME[0] = m", "QNT_NAME[1] = zeta",
+                    f"METBASE = {metbase}", f"T_STOP = {t_stop:.2f}",
+                    "DIFFUSION = 1", "TPU_FAST = 1", "ATM_TYPE = 1",
+                    "ATM_TYPE_OUT = 1", "ATM_BASENAME = -"]
+
+
+def phase_zeta_path(torch, n):
+    """``tools.trac`` from files with diabatic zeta advection at full
+    size: two CLaMS met files of 360x181x61 model levels, N parcels with
+    m and zeta (drawn within every column's range from seed 0), float32
+    on the unfused kernels (the surface and sigma kernels in the
+    diffusion), 2 warm-up and 10 timed steps.  Milliseconds a step, of
+    each column search and each field interpolated at it, the bytes they
+    gather, the K2 and K5 launches, the met files' seconds and peak
+    memory."""
+    import numpy as np
+
+    from mptrac_tpu_torch import sim as simmod
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.io import atm_io
+    from mptrac_tpu_torch.ops import _cuda, interp
+    from mptrac_tpu_torch.physics import pipeline
+    from mptrac_tpu_torch.tools import trac
+    from mptrac_tpu_torch.types import Atm
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="mptrac_zeta_")
+    try:
+        n_run, cut = disk_cut(tmp, n, 6 * 8, "zeta path")
+        t0 = time.time()
+        cols = [write_clams_met(os.path.join(tmp, f"clams_160701{hh:02d}.nc"),
+                                ZETA_T0 + hh * 3600.0, hh, *ZETA_GRID)
+                for hh in (0, 6)]
+        zlo = max(float(c[..., 0].max()) for c in cols)
+        zhi = min(float(c[..., -1].min()) for c in cols)
+        t_stop = ZETA_T0 + (ZETA_STEPS - 1) * 180.0
+        with open(os.path.join(tmp, "trac.ctl"), "w") as f:
+            f.write("\n".join(zeta_ctl(root, os.path.join(tmp, "clams"),
+                                       t_stop)) + "\n")
+        ctl = read_ctl(os.path.join(tmp, "trac.ctl"))
+        rng = np.random.default_rng(0)
+        f64 = torch.float64
+
+        def draw(lo, hi):
+            return torch.from_numpy(rng.uniform(lo, hi, n_run))
+
+        atm = Atm(time=torch.full((n_run,), ZETA_T0, dtype=f64),
+                  p=torch.full((n_run,), 500.0, dtype=f64),
+                  lon=draw(-180.0, 180.0), lat=draw(-60.0, 60.0),
+                  q={"m": torch.ones(n_run, dtype=f64),
+                     "zeta": draw(zlo, zhi)}, np=n_run)
+        atm_io.write_atm(os.path.join(tmp, "atm_in.bin"), ctl, atm, ZETA_T0)
+        del atm
+        with open(os.path.join(tmp, "dirlist"), "w") as f:
+            f.write(tmp + "\n")
+        setup_s = time.time() - t0
+        say(f"[zeta] {n_run} parcels{cut}, zeta in [{zlo:.2f}, {zhi:.2f}] "
+            f"K; files written in {setup_s:.1f} s")
+
+        tm = Timing(torch)
+        advance = simmod.Simulation.advance
+        holder = {}
+
+        def counted_advance(self, t, write_output=True):
+            holder["sim"] = self
+            tm.step += 1
+            advance(self, t, write_output)
+
+        simmod.Simulation.advance = counted_advance
+        tm.wrap(simmod.Simulation, "advance", "step")
+        tm.wrap(pipeline, "run_timestep", "timestep")
+        tm.wrap(interp, "locate_zeta", "search")
+        tm.wrap(interp, "interp_zeta", "field")
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launch_counts()              # the path starts here
+        t0 = time.time()
+        try:
+            rc = trac.main(["trac", os.path.join(tmp, "dirlist"), "trac.ctl",
+                            "atm_in.bin", "--device", "cuda", "--dtype",
+                            "float32"])
+        finally:
+            tm.restore()
+            simmod.Simulation.advance = advance
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        counts = dict(_cuda.launch_counts)       # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        if rc != 0:
+            raise RuntimeError(f"zeta path: tools.trac returned {rc}")
+        sim = holder["sim"]
+        steps, ts_ms = tm.ms("step"), tm.ms("timestep")
+        if len(steps) != ZETA_STEPS:
+            raise RuntimeError(f"zeta path: {len(steps)} steps")
+        if (counts["rk_fused_advect"] != 0 or counts["sfc_interp"] < 10
+                or counts["meso_sigma"] < 10):
+            raise RuntimeError(f"zeta path: launches {counts}")
+        a = sim.atm
+        for name, x in (("lon", a.lon), ("lat", a.lat), ("p", a.p),
+                        ("zeta", a.q["zeta"])):
+            if not bool(torch.isfinite(x).all()):
+                raise RuntimeError(f"zeta path: non-finite {name}")
+        if not (float(a.p.min()) > 0.0 and float(a.p.max()) < 1100.0
+                and float((a.time - t_stop).abs().max()) == 0.0):
+            raise RuntimeError("zeta path: pressure or times out of range")
+        searches = tm.ms("search")
+        fields = tm.ms("field")
+        timed = list(range(2, ZETA_STEPS))
+        npl = ZETA_GRID[2]
+        probes = 3 + math.ceil(math.log2(npl + 1)) + 2
+        # each level evaluated at a parcel gathers 8 float32 values (four
+        # corners, two times) through 8-byte indices
+        per_level = n_run * 8 * (4 + 8)
+        s_ms = [sum(tm.ms("search", i)) for i in timed]
+        f_ms = [sum(tm.ms("field", i)) for i in timed]
+        n_search = len(tm.ms("search", timed[0]))
+        n_field = len(tm.ms("field", timed[0]))
+        result = {
+            "n_parcels": n_run, "n_parcels_asked": n,
+            "grid": list(ZETA_GRID), "steps": ZETA_STEPS,
+            "steps_timed": len(timed), "run_s": run_s,
+            "files_written_s": setup_s,
+            "ms_per_step": float(np.mean([steps[i] for i in timed])),
+            "ms_per_step_min_max": [min(steps[i] for i in timed),
+                                    max(steps[i] for i in timed)],
+            "ms_run_timestep": float(np.mean([ts_ms[i] for i in timed])),
+            "column_searches_per_step": n_search,
+            "fields_per_step": n_field,
+            "interp_4d_zeta_calls_per_step": n_field,
+            "ms_per_search": float(np.mean(searches[2:])),
+            "ms_per_field": float(np.mean(fields[2:])),
+            "ms_zeta_interp_per_step": float(np.mean(
+                [s + f for s, f in zip(s_ms, f_ms)])),
+            "ms_per_interp_4d_zeta_call": float(np.mean(
+                [(s + f) / n_field for s, f in zip(s_ms, f_ms)])),
+            "levels_per_search": probes, "levels_per_field": 2,
+            "gathered_bytes_per_search": probes * per_level,
+            "gathered_bytes_per_field": 2 * per_level,
+            "gather_GBps_search": probes * per_level / 1e6 / float(
+                np.mean(searches[2:])),
+            "met_files": sim.met.reads,
+            "peak_memory_allocated_bytes": peak, "launches": counts}
+        say(json.dumps({"zeta_path": result}))
+        return result
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_golden_zeta(torch):
+    """The port's ``run_trac`` on the card in float64 on a temporary copy
+    of ``parity/golden_zeta`` (120 steps of diabatic zeta advection, 819
+    parcels), held at tests/test_zeta_parity.py's tolerances."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    gold = os.path.join(root, "parity", "golden_zeta", "data")
+    tmp, data, sim, seconds = run_golden_copy(
+        torch, gold, lambda f: f in ("trac.ctl", "atm_init.tab")
+        or f.startswith("clams_"), ("atm_init.tab", "ATM_BASENAME", "atm"))
+    try:
+        nsteps = sim.timers.as_dict()["RUN_TIMESTEP"]["count"]
+        if sim.atm.lon.device.type != "cuda" or nsteps != 121:
+            raise RuntimeError(f"golden_zeta: {nsteps} steps on "
+                               f"{sim.atm.lon.device}")
+        held = {}
+        for stamp in ("00_00_00", "03_00_00", "06_00_00"):
+            f = f"atm_2016_07_01_{stamp}.tab"
+            errs = hold_tab(f"golden_zeta {f}", os.path.join(data, f),
+                            os.path.join(gold, f),
+                            {0: (0, 0), 1: (0, 1e-4), 2: (0, 1e-4),
+                             3: (0, 1e-4)}, (1e-4, 1e-4))
+            held[f] = errs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(json.dumps({"golden_zeta": {
+        "steps": nsteps - 1, "n_parcels": sim.atm.np, "dtype": "float64",
+        "seconds": seconds, "max_abs_err_by_column": held}}))
 
 
 # ------------------------------------------------------------- the probes
@@ -1594,7 +2532,9 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs one CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    sys.path.insert(0, os.path.join(root, "tests"))
     t_start = time.time()
     smi = phase_environment(torch)
     usage = phase_build()
@@ -1611,10 +2551,17 @@ def main():
     sim, counts = phase_chem_path(torch, args.np, args.steps, args.profile)
     del sim
     torch.cuda.empty_cache()
-    phase_trac_path(torch, args.np)
+    trac = phase_trac_path(torch, args.np)
+    torch.cuda.empty_cache()
+    phase_output_path(torch, args.np, trac)
     torch.cuda.empty_cache()
     phase_trac_vs_cpu(torch)
+    phase_writers_vs_cpu(torch)
     phase_golden_long(torch)
+    phase_golden_chem(torch)
+    phase_zeta_path(torch, args.np)
+    torch.cuda.empty_cache()
+    phase_golden_zeta(torch)
     kernels += phase_probes(torch, args.np)
     say(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

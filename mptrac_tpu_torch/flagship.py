@@ -101,7 +101,9 @@ def make_setup(n_parcels: int, nx: int = 90, ny: int = 46, nz: int = 16,
 
 def write_case(dirname: str, n_parcels: int, grid: Sequence[int],
                t_start: float, t_stop: float, sort_dt: float,
-               dt_met: float = 3600.0, extra_ctl: Sequence[str] = ()) -> str:
+               dt_met: float = 3600.0, extra_ctl: Sequence[str] = (),
+               quantities: Sequence[str] = ("t", "m"), wind_q: float = 0.0,
+               wind_o3: float = 0.0) -> str:
     """The flagship as a working directory for ``tools.trac``: three
     netCDF met files of the solid-body wind ``dt_met`` apart from time 0
     (``dt_met`` a whole number of hours: file names carry the hour),
@@ -109,8 +111,12 @@ def write_case(dirname: str, n_parcels: int, grid: Sequence[int],
     (binary, ``ATM_TYPE 1``), ``trac.ctl`` with the flagship's control
     parameters, binary particle output at ``t_stop`` only, and
     ``dirlist``.  ``extra_ctl`` are further ``KEY VALUE`` control
-    parameters.  Everything is made on the host.  Returns the dirlist's
-    path."""
+    parameters.  ``quantities`` are the parcels' quantities, from
+    ``t`` (0), ``m`` (1), ``stat`` (0) and ``ens`` (the parcel's index
+    mod 32).  ``wind_q`` and ``wind_o3`` are the met's uniform H2O and O3
+    volume mixing ratios (the reference wind tool's ``WIND_Q`` and
+    ``WIND_O3``).  Everything is made on the host.  Returns the
+    dirlist's path."""
     import os
 
     from mptrac_tpu_torch.io import atm_io
@@ -118,6 +124,10 @@ def write_case(dirname: str, n_parcels: int, grid: Sequence[int],
     from mptrac_tpu_torch.met.write_nc import write_met_nc
 
     pairs = dict(zip(FLAGSHIP_ARGS[0::2], FLAGSHIP_ARGS[1::2]))
+    del pairs["QNT_NAME[0]"], pairs["QNT_NAME[1]"]
+    pairs["NQ"] = str(len(quantities))
+    pairs.update({f"QNT_NAME[{i}]": name
+                  for i, name in enumerate(quantities)})
     pairs.update({
         "METBASE": os.path.join(dirname, "met"), "DT_MET": str(dt_met),
         "SORT_DT": str(sort_dt), "ATM_TYPE": "1", "ATM_TYPE_OUT": "1",
@@ -132,7 +142,7 @@ def write_case(dirname: str, n_parcels: int, grid: Sequence[int],
     nx, ny, nz = grid
     for k in range(3):
         met = make_wind_met(t0=k * dt_met, nx=nx, ny=ny, nz=nz, alpha=30.0,
-                            device="cpu")
+                            q=wind_q, o3=wind_o3, device="cpu")
         write_met_nc(get_met_filename(ctl, k * dt_met, 1), met,
                      drop_wrap_column=True)
         del met
@@ -143,10 +153,13 @@ def write_case(dirname: str, n_parcels: int, grid: Sequence[int],
 
     lon, lat, p = draw(-180, 180), draw(-60, 60), draw(200, 900)
     f64 = torch.float64
+    made = {"t": lambda: torch.zeros(n_parcels, dtype=f64),
+            "m": lambda: torch.ones(n_parcels, dtype=f64),
+            "stat": lambda: torch.zeros(n_parcels, dtype=f64),
+            "ens": lambda: (torch.arange(n_parcels) % 32).to(f64)}
     atm = Atm(time=torch.full((n_parcels,), float(t_start), dtype=f64), p=p,
-              lon=lon, lat=lat,
-              q={"t": torch.zeros(n_parcels, dtype=f64),
-                 "m": torch.ones(n_parcels, dtype=f64)}, np=n_parcels)
+              lon=lon, lat=lat, q={name: made[name]() for name in quantities},
+              np=n_parcels)
     atm_io.write_atm(os.path.join(dirname, "atm_in.bin"), ctl, atm, t_start)
     dirlist = os.path.join(dirname, "dirlist")
     with open(dirlist, "w") as f:

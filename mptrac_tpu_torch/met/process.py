@@ -753,26 +753,27 @@ def ml2pl(ctl: Ctl, f3, target_p):
     nml = pl.shape[-1]
     npl_out = target_p.size
     desc = pl[..., :1] > pl[..., 1:2]
-    for name in ("t", "u", "v", "w", "h2o", "o3", "lwc", "rwc", "iwc",
-                 "swc", "cc"):
-        if name not in f3:
-            continue
-        var = f3[name].astype(np.float64)
-        out = np.empty(var.shape[:-1] + (npl_out,))
-        for ip, pt in enumerate(target_p):
-            ptc = np.clip(pt,
-                          np.minimum(pl[..., 0], pl[..., -1]),
-                          np.maximum(pl[..., 0], pl[..., -1]))
-            # locate_irr per column (descending or ascending profiles)
-            # via a per-column comparison count
-            key = np.where(desc, -pl, pl)
-            kq = np.where(desc[..., 0], -ptc, ptc)
-            idx = np.sum(key <= kq[..., None], axis=-1) - 1
-            idx = np.clip(idx, 0, nml - 2)
-            p0 = np.take_along_axis(pl, idx[..., None], -1)[..., 0]
-            p1 = np.take_along_axis(pl, idx[..., None] + 1, -1)[..., 0]
-            v0 = np.take_along_axis(var, idx[..., None], -1)[..., 0]
-            v1 = np.take_along_axis(var, idx[..., None] + 1, -1)[..., 0]
-            denom = np.where(p1 != p0, p1 - p0, 1.0)
-            out[..., ip] = v0 + (v1 - v0) / denom * (ptc - p0)
-        f3[name] = out.astype(np.float32)
+    names = [name for name in ("t", "u", "v", "w", "h2o", "o3", "lwc",
+                               "rwc", "iwc", "swc", "cc") if name in f3]
+    var = {name: f3[name].astype(np.float64) for name in names}
+    out = {name: np.empty(pl.shape[:-1] + (npl_out,)) for name in names}
+    # locate_irr per column (descending or ascending profiles) via a
+    # per-column comparison count; the cell of each target level is the
+    # same for every field
+    key = np.where(desc, -pl, pl)
+    lo = np.minimum(pl[..., 0], pl[..., -1])
+    hi = np.maximum(pl[..., 0], pl[..., -1])
+    for ip, pt in enumerate(target_p):
+        ptc = np.clip(pt, lo, hi)
+        kq = np.where(desc[..., 0], -ptc, ptc)
+        idx = np.sum(key <= kq[..., None], axis=-1) - 1
+        idx = np.clip(idx, 0, nml - 2)[..., None]
+        p0 = np.take_along_axis(pl, idx, -1)[..., 0]
+        p1 = np.take_along_axis(pl, idx + 1, -1)[..., 0]
+        denom = np.where(p1 != p0, p1 - p0, 1.0)
+        for name in names:
+            v0 = np.take_along_axis(var[name], idx, -1)[..., 0]
+            v1 = np.take_along_axis(var[name], idx + 1, -1)[..., 0]
+            out[name][..., ip] = v0 + (v1 - v0) / denom * (ptc - p0)
+    for name in names:
+        f3[name] = out[name].astype(np.float32)

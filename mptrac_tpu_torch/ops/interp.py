@@ -1,11 +1,11 @@
 """4-D meteo interpolation core (exact path).
 
-Counterpart of the JAX package's ``ops/interp.py:36-262`` (reference
+Counterpart of the JAX package's ``ops/interp.py`` (reference
 ``locate_reg`` c:3559, ``locate_irr`` c:3495, ``intpol_check_lon_lat``
 c:2755, ``intpol_check_cartesian`` c:2783, ``intpol_met_space_3d``
 c:2985, ``intpol_met_space_2d`` c:3048, ``intpol_met_time_3d`` c:3112,
-``intpol_met_time_2d`` c:3141).  The model-level (zeta) interpolation
-is not ported yet.
+``intpol_met_time_2d`` c:3141 and the model-level
+``intpol_met_4d_zeta`` c:2808).
 
 Every function works on whole parcel batches: one ``Locator`` holds the
 per-parcel cell indices and weights, computed once and reused across
@@ -15,6 +15,7 @@ the *lower* index, ``val = w * (a[lo] - a[hi]) + a[hi]``.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -209,3 +210,142 @@ def interp_time_2d(met01: Met, name: str, ts, loc: Locator, dtype=None):
     both = torch.isfinite(v0) & torch.isfinite(v1)
     return torch.where(both, wt * (v0 - v1) + v1,
                        torch.where(wt < 0.5, v1, v0))
+
+
+# ---------------------------------------------------------------------------
+# Model-level (zeta/eta) interpolation: intpol_met_4d_zeta (c:2808)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ZetaLocator:
+    """Per-parcel state of an interpolation in a column-dependent
+    vertical coordinate: the column of the cell's lower corner
+    (``ix * ny + iy``), the weights of snapshot 1 (``wt1``), of the
+    upper longitude and latitude (``wx1``, ``wy1``), the level index
+    ``iz`` and the weight ``wzeta`` of level ``iz + 1``."""
+    col: torch.Tensor
+    wt1: torch.Tensor
+    wx1: torch.Tensor
+    wy1: torch.Tensor
+    ny: int
+    npl_f: int
+    dtype: torch.dtype
+    iz: torch.Tensor = None
+    wzeta: torch.Tensor = None
+
+
+def _zeta_level(flat: torch.Tensor, loc: ZetaLocator, k: torch.Tensor):
+    """A field ``[2, nx*ny*npl_f]`` at level ``k`` of each parcel's
+    column, interpolated in the JAX function's order: time at each of
+    the four corners, then latitude, then longitude."""
+    npl_f, ny = loc.npl_f, loc.ny
+    base = loc.col * npl_f + k
+
+    def corner(off):
+        idx = base + off if off else base
+        p0 = flat[0][idx].to(loc.dtype)
+        p1 = flat[1][idx].to(loc.dtype)
+        return loc.wt1 * (p1 - p0) + p0
+
+    h00, h01 = corner(0), corner(npl_f)
+    h0 = loc.wy1 * (h01 - h00) + h00
+    del h00, h01
+    h10, h11 = corner(ny * npl_f), corner((ny + 1) * npl_f)
+    h1 = loc.wy1 * (h11 - h10) + h10
+    del h10, h11
+    return loc.wx1 * (h1 - h0) + h0
+
+
+def locate_zeta(met01: Met, heights_name: str, ts, height, lon, lat,
+                dtype=torch.float64) -> ZetaLocator:
+    """Cell, weights and level of each parcel for an interpolation in the
+    vertical coordinate ``heights_name`` ("zetal" or "pl"): the part of
+    ``interp_4d_zeta`` that does not depend on the interpolated field.
+
+    The JAX package interpolates the whole height profile of every
+    parcel's column (``[N, npl]``) and counts, with ``locate_irr``, the
+    levels at or below (ascending column) or above (descending) the
+    parcel.  Here a binary search over the level index finds the same
+    count, evaluating only the levels it probes, each from its eight
+    values (four corners, two times) in the JAX arithmetic order.  The
+    direction of the count is each parcel's own, from levels 0 and 1, as
+    in ``locate_irr``; the search runs in the direction of the column's
+    end levels, and the count in the other direction is ``npl`` minus
+    it.  On a monotonic column (ties included) this is the JAX count; on
+    a column out of order the two can differ.  A NaN height goes to cell
+    0, the index is clamped to ``[0, npl - 2]`` and ``npl`` is
+    ``npl_ml`` when that is set."""
+    heights = met01.fields3d[heights_name]            # [2, nx, ny, npl_f]
+    lons, lats, _ = grid_axes(met01)
+    nx, ny, npl_f = heights.shape[-3:]
+    npl = met01.npl_ml if met01.npl_ml > 0 else npl_f
+    if met01.coord_type == 0:
+        lon2, lat2 = check_lon_lat(lons, lats, lon, lat)
+    else:
+        lon2, lat2 = check_cartesian(lons, lats, lon, lat)
+    ix = locate_reg(lons, lon2)
+    iy = locate_irr(lats, lat2)
+    t0, t1 = met01.time
+    x0, x1 = _axis_vals(lons, ix, met01.reg_lon)
+    y0, y1 = _axis_vals(lats, iy, met01.reg_lat)
+    loc = ZetaLocator(
+        col=ix.to(torch.int64) * ny + iy, wt1=(ts - t0) / (t1 - t0),
+        wx1=(lon2 - x0) / (x1 - x0), wy1=(lat2 - y0) / (y1 - y0),
+        ny=ny, npl_f=npl_f, dtype=dtype)
+    del ix, iy, x0, x1, y0, y1, lon2, lat2
+    flat = heights.reshape(2, nx * ny * npl_f)
+
+    def level(k):
+        if isinstance(k, int):
+            k = torch.full_like(loc.col, k)
+        return _zeta_level(flat, loc, k)
+
+    h_0, h_1, h_last = level(0), level(1), level(npl - 1)
+    count_asc = h_1 > h_0            # locate_irr's direction
+    search_asc = h_last >= h_0       # the column's direction
+    del h_0, h_1, h_last
+    # lo ends as the number of leading levels with h_k <= height on a
+    # column that ascends, with h_k > height on one that descends
+    lo = torch.zeros_like(loc.col)
+    hi = torch.full_like(loc.col, npl)
+    for _ in range(math.ceil(math.log2(npl + 1))):
+        mid = (lo + hi) // 2
+        h_mid = level(torch.clamp(mid, max=npl - 1))
+        below = torch.where(search_asc, h_mid <= height, h_mid > height)
+        del h_mid
+        active = lo < hi
+        lo = torch.where(active & below, mid + 1, lo)
+        hi = torch.where(active & ~below, mid, hi)
+        del mid, below, active
+    cnt = torch.where(count_asc == search_asc, lo, npl - lo)
+    cnt = torch.where(torch.isnan(height), 0, cnt)
+    del lo, hi, count_asc, search_asc
+    loc.iz = torch.clamp(cnt - 1, 0, npl - 2)
+    h_bot, h_top = level(loc.iz), level(loc.iz + 1)
+    loc.wzeta = (height - h_bot) / (h_top - h_bot)
+    return loc
+
+
+def interp_zeta(met01: Met, loc: ZetaLocator, array_name: str):
+    """Field ``array_name`` at the located parcels: the two levels
+    around each parcel, weighted by ``wzeta``."""
+    field = met01.fields3d[array_name]
+    if field.shape[-1] != loc.npl_f:
+        raise ValueError(f"interp_zeta: {array_name} has {field.shape[-1]} "
+                         f"levels, the located coordinate {loc.npl_f}")
+    flat = field.reshape(2, -1)
+    a_bot = _zeta_level(flat, loc, loc.iz)
+    a_top = _zeta_level(flat, loc, loc.iz + 1)
+    return loc.wzeta * (a_top - a_bot) + a_bot
+
+
+def interp_4d_zeta(met01: Met, heights_name: str, array_name: str, ts,
+                   height, lon, lat, dtype=torch.float64) -> torch.Tensor:
+    """4-D interpolation in a column-dependent vertical coordinate
+    (reference intpol_met_4d_zeta, c:2808): ``heights_name`` selects the
+    3-D coordinate field (e.g. "zetal" or "pl"), ``array_name`` the
+    field to interpolate; computed in ``dtype`` (float64 by default,
+    whatever the state's dtype).  ``locate_zeta`` says how; no
+    ``[N, npl]`` tensor is built."""
+    return interp_zeta(met01, locate_zeta(met01, heights_name, ts, height,
+                                          lon, lat, dtype), array_name)

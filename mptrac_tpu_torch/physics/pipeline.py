@@ -4,14 +4,17 @@ Counterpart of the JAX package's ``physics/pipeline.py:31-207`` (the
 reference ``mptrac_run_timestep``, mptrac.c:7545-7694): the fixed
 module order with the enables resolved from Ctl on the host.  Eager:
 one call runs one step.  Ported: timesteps, position, advection
-on pressure levels (fused, unfused through the kernels, or exact),
+on pressure levels (fused, unfused through the kernels, or exact), on
+model levels and in zeta/eta (``ADVECT_VERT_COORD`` 1-3, exact),
 turbulent and mesoscale diffusion, convection, meteo sampling, boundary
 conditions, decay, mixing, the chemistry grid, OH / H2O2 / tracer
 chemistry, wet and dry deposition, and the first-step initialisation
 (``init_modules``).  The pack decides the path: with
-``pack.cell`` the fused RK kernel, with ``pack.packT`` the unfused
-kernels, without a pack (or with a float64 state) the exact
-interpolation.  A gate that would reach a module that is not ported
+``pack.cell`` the fused RK kernel (pressure levels only, as in the JAX
+step), with ``pack.packT`` the unfused kernels, without a pack (or with
+a float64 state) the exact interpolation.  Off pressure levels the
+advection is the exact model-level one, and the kernels' tables still
+serve the diffusion.  A gate that would reach a module that is not ported
 raises ``NotImplementedError`` naming it.
 """
 
@@ -196,8 +199,6 @@ def init_modules(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache):
     """First-step module initialization (reference c:7556-7567)."""
     if 1 <= ctl.isosurf <= 4:
         _unported("module_isosurf_init")
-    # module_advect_init does nothing on pressure levels
-    if ctl.advect_vert_coord == 1 and "zeta" in atm.q:
-        _unported("module_advect_init (interp_4d_zeta)")
+    atm = m_advect.module_advect_init(ctl, met01, atm)
     atm = m_chem.module_chem_init(ctl, clim, met01, atm)
     return atm, cache

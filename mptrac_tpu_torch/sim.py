@@ -45,17 +45,21 @@ from mptrac_tpu_torch.utils.timers import Timers
 
 def build_pack(ctl: Ctl, met01: Met) -> Optional[MetPack]:
     """The gather tables that the control parameters ask for, as the
-    JAX package's ``Simulation._get_pack`` chooses them (rebuild once
-    per met interval): ``TPU_FAST 0`` none, the exact interpolation;
-    ``TPU_FAST >= 2`` with ``SORT_DT > 0`` the fused RK kernel's;
-    otherwise the unfused kernels', with the sigma table only where
-    the mesoscale diffusion runs."""
+    JAX package's step uses them (rebuild once per met interval):
+    ``TPU_FAST 0`` none, the exact interpolation; ``TPU_FAST >= 2`` with
+    ``SORT_DT > 0`` on pressure levels the fused RK kernel's; otherwise
+    the unfused kernels', with the sigma table only where the mesoscale
+    diffusion runs.  The JAX step takes the fused kernel only on
+    pressure levels (``ADVECT_VERT_COORD 0``); with another vertical
+    coordinate the advection is exact, and the unfused tables serve the
+    diffusion (the surface and sigma kernels), whatever ``TPU_FAST``."""
     if not ctl.tpu_fast:
         return None
     meso = bool(ctl.diffusion) and (ctl.turb_mesox > 0
                                     or ctl.turb_mesoz > 0)
     return build_met_pack(met01,
-                          cell=ctl.tpu_fast >= 2 and ctl.sort_dt > 0,
+                          cell=(ctl.tpu_fast >= 2 and ctl.sort_dt > 0
+                                and ctl.advect_vert_coord == 0),
                           sigma=meso)
 
 

@@ -574,3 +574,144 @@ def test_permute_count_matches_plain(gpu):
         counts = [_cuda.launch_counts[k] - b for k, b in zip(keys, before)]
         assert counts == ([3, 0, 1, 1] if path == "rows"
                           else [3, 1, 0, 0]), kind
+
+
+# ----------------------------------------- the writers and the zeta search
+
+def _writer_state(device, dtype, n=20_000):
+    """A state for the writers: the flagship's positions, times in and
+    out of the window, t, m, stat and ens (the parcel's index mod 32)."""
+    from mptrac_tpu_torch.types import Atm
+    rng = np.random.default_rng(4)
+    t0 = 1800.0
+    q = {"t": rng.uniform(200.0, 300.0, n), "m": rng.uniform(0.5, 2.0, n),
+         "stat": (rng.random(n) < 0.1) * 1.0, "ens": np.arange(n) % 32.0}
+
+    def put(a, dt=dtype):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    return Atm(time=put(t0 + rng.choice([0.0, 0.0, 45.0, -300.0], n),
+                        torch.float64),
+               p=put(np.exp(rng.uniform(np.log(150.0), np.log(950.0), n))),
+               lon=put(rng.uniform(-180.0, 180.0, n)),
+               lat=put(rng.uniform(-60.0, 60.0, n)),
+               q={k: put(v) for k, v in q.items()}, np=n - 37)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_writers_card_against_cpu_on_one_state(gpu, tmp_path, dtype):
+    """Every writer through ``OutputManager`` on the card and on the CPU
+    from the same state (float64, and float32 as the kernels' paths
+    leave it), two outputs: the same files, the same counts, sums at
+    1e-12 (float64) or 1e-6 (float32) relative (``index_add_`` on the
+    card adds in no fixed order), the same station flags."""
+    import os
+    import types
+
+    from test_full_parity import load_tab
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.io.output import OutputManager
+    from mptrac_tpu_torch.met.synthetic import make_wind_met
+    from mptrac_tpu_torch.types import astype_state, stack_met
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(6)
+    obs = tmp_path / "obs.tab"
+    rows = np.stack([np.sort(rng.uniform(1700.0, 2100.0, 500)),
+                     rng.uniform(1.0, 12.0, 500),
+                     rng.uniform(-180.0, 180.0, 500),
+                     rng.uniform(-60.0, 60.0, 500),
+                     10.0 ** rng.uniform(-9.0, -3.0, 500)], -1)
+    np.savetxt(obs, rows, fmt="%.10g")
+    args = ["NQ", "4", "QNT_NAME[0]", "t", "QNT_NAME[1]", "m",
+            "QNT_NAME[2]", "stat", "QNT_NAME[3]", "ens", "DT_MOD", "180",
+            "METBASE", "-", "MOLMASS", "64.066", "ATM_BASENAME", "-",
+            "GRID_BASENAME", "grid", "GRID_DT_OUT", "180", "GRID_NZ", "10",
+            "GRID_Z0", "0", "GRID_Z1", "20", "GRID_TYPE", "1",
+            "ENS_BASENAME", "ens", "ENS_DT_OUT", "180",
+            "CSI_BASENAME", "csi", "CSI_OBSFILE", str(obs),
+            "CSI_DT_OUT", "360", "PROF_BASENAME", "prof",
+            "PROF_OBSFILE", str(obs), "SAMPLE_BASENAME", "sample",
+            "SAMPLE_OBSFILE", str(obs), "SAMPLE_DZ", "1", "SAMPLE_DX", "300",
+            "STAT_BASENAME", "station", "STAT_LON", "10", "STAT_LAT", "20",
+            "STAT_R", "1500", "VTK_BASENAME", "vtk", "VTK_DT_OUT", "180",
+            "VTK_STRIDE", "7"]
+    ctl = read_ctl(None, args)
+    dirs, states = {}, {}
+    for dev, sub in (("cuda", "card"), ("cpu", "host")):
+        met = stack_met(*(make_wind_met(t0=t, nx=36, ny=19, nz=8,
+                                        alpha=30.0, temp0=290.0,
+                                        temp1=210.0, q=1e-3, o3=3e-7,
+                                        device=dev) for t in (0.0, 3600.0)))
+        atm = _writer_state(dev, dt)
+        if dtype == "float32":
+            met = astype_state(met=met)
+        d = tmp_path / sub
+        d.mkdir()
+        om = OutputManager(str(d), ctl)
+        for t in (1800.0, 1980.0, 2160.0):
+            om.write(types.SimpleNamespace(pair=met), atm, t)
+            atm = atm.replace(time=atm.time + 180.0)
+        om.close()
+        dirs[sub], states[sub] = d, atm
+    names = sorted(os.listdir(dirs["host"]))
+    assert names == sorted(os.listdir(dirs["card"])) and len(names) >= 13
+    rtol = 1e-12 if dtype == "float64" else 1e-6
+    for name in names:
+        a, b = dirs["card"] / name, dirs["host"] / name
+        if name.endswith(".nc"):
+            from scipy.io import netcdf_file
+            na, nb = netcdf_file(str(a), mmap=False), netcdf_file(
+                str(b), mmap=False)
+            for var, v in nb.variables.items():
+                x, y = na.variables[var][:], v[:]
+                if var == "np":
+                    np.testing.assert_array_equal(x, y)
+                else:
+                    np.testing.assert_allclose(x, y, rtol=rtol, atol=1e-30,
+                                               equal_nan=True, err_msg=var)
+            na.close()
+            nb.close()
+        elif name.endswith(".vtk"):
+            assert a.read_text() == b.read_text(), name
+        else:
+            x, y = load_tab(a), load_tab(b)
+            assert x.shape == y.shape, name
+            np.testing.assert_allclose(x, y, rtol=rtol, atol=1e-30,
+                                       equal_nan=True, err_msg=name)
+    assert torch.equal(states["card"].q["stat"].cpu(),
+                       states["host"].q["stat"])
+
+
+def test_interp_4d_zeta_card_against_cpu(gpu):
+    """The column search and the interpolation on the card give the CPU's
+    numbers (float64 gathers and arithmetic, op by op) on an ascending and
+    a descending column field of the CLaMS-convention met."""
+    import pathlib
+
+    from mptrac_tpu_torch.climatology import read_clim
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.met.build import read_met
+    from mptrac_tpu_torch.types import stack_met
+    gold = (pathlib.Path(__file__).resolve().parents[1] / "parity"
+            / "golden_zeta" / "data")
+    ctl = read_ctl(str(gold / "trac.ctl"))
+    clim = read_clim(ctl, device="cpu")
+    met = {dev: stack_met(*(read_met(str(gold / f), ctl, clim, device=dev)
+                            for f in ("clams_16070100.nc",
+                                      "clams_16070106.nc")))
+           for dev in ("cuda", "cpu")}
+    rng = np.random.default_rng(2)
+    n = 100_000
+    t = torch.from_numpy(520646400.0 + rng.uniform(0, 21600.0, n))
+    lon = torch.from_numpy(rng.uniform(-180.0, 180.0, n))
+    lat = torch.from_numpy(rng.uniform(-89.0, 89.0, n))
+    for heights, array, lo, hi in (("zetal", "pl", 250.0, 2500.0),
+                                   ("pl", "ul", 0.5, 1100.0)):
+        h = torch.from_numpy(rng.uniform(lo, hi, n))
+        h[:10] = float("nan")
+        got = interp.interp_4d_zeta(met["cuda"], heights, array, t.cuda(),
+                                    h.cuda(), lon.cuda(), lat.cuda()).cpu()
+        want = interp.interp_4d_zeta(met["cpu"], heights, array, t, h, lon,
+                                     lat)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                                   atol=0, equal_nan=True)

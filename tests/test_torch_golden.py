@@ -7,9 +7,13 @@ held to the JAX package's own golden tests.
   mixing, boundary conditions, decay, dry deposition), staged at steps
   60, 300 and 1020 with the tolerances of ``tests/test_long_parity.py``
   (``STAGES``) and its below-a-cell check.
-* ``parity/golden_chem``: the same physics for 60 steps, the particle
-  files at 00:10, 01:00 and 02:00 at the tolerances of
-  ``tests/test_full_parity.py::test_chem_atm``.
+* ``parity/golden_chem``: the same physics for 60 steps with every
+  output writer on, as ``tests/test_full_parity.py`` runs it: the
+  particle files at 00:10, 01:00 and 02:00 (with the station flag
+  ``stat`` that the station writer sets), the grid files at 00, 01 and
+  02 h, the ensemble files at 01 and 02 h, the CSI, station, profile
+  and sample tables and the third VTK file, each at the tolerances of
+  its test there.
 
 The golden control files name climatology files of a reference checkout;
 both runs pass ``CLIM_*`` overrides that point at the copies in
@@ -26,7 +30,7 @@ import pytest
 import torch
 
 import test_long_parity as long_parity
-from test_full_parity import assert_tab_close, load_tab
+from test_full_parity import assert_tab_close, load_tab, load_vtk_points
 from mptrac_tpu_torch.sim import run_trac
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -49,6 +53,16 @@ CLIM_OVERRIDES = (
 CHEM_COL_TOL = {0: (0, 0), 1: (0, 1e-5), 2: (0, 1e-5), 3: (0, 1e-5)}
 CHEM_DEFAULT = (1e-4, 1e-9)
 
+#: the writers of tests/test_full_parity.py's chem_run, with its
+#: observation file
+CHEM_WRITERS = (
+    "GRID_BASENAME", "grid", "ENS_BASENAME", "ens",
+    "STAT_BASENAME", "station",
+    "CSI_BASENAME", "csi", "CSI_OBSFILE", "data/obs.tab",
+    "PROF_BASENAME", "prof", "PROF_OBSFILE", "data/obs.tab",
+    "SAMPLE_BASENAME", "sample", "SAMPLE_OBSFILE", "data/obs.tab",
+    "VTK_BASENAME", "atm")
+
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
@@ -60,14 +74,15 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def run_golden(tmpdir, golden):
+def run_golden(tmpdir, golden, extra=()):
     """The port's run_trac on a copy of a golden set, laid out as the
     JAX package's tests/test_full_parity.py:run_ours lays it out;
     returns (output directory, simulation, seconds)."""
     data = tmpdir / "data"
     data.mkdir()
-    for f in ("trac.ctl", "atm_split.tab"):
-        shutil.copy(golden / f, data / f)
+    for f in ("trac.ctl", "atm_split.tab", "obs.tab"):
+        if (golden / f).exists():
+            shutil.copy(golden / f, data / f)
     for f in sorted(golden.glob("met_*.nc")):
         shutil.copy(f, data / f.name)
     cwd = os.getcwd()
@@ -75,8 +90,8 @@ def run_golden(tmpdir, golden):
     try:
         t0 = time.perf_counter()
         sim = run_trac("data", "trac.ctl", "atm_split.tab",
-                       ("ATM_BASENAME", "atm") + CLIM_OVERRIDES,
-                       device="cpu")
+                       ("ATM_BASENAME", "atm") + tuple(extra)
+                       + CLIM_OVERRIDES, device="cpu")
         seconds = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
@@ -94,7 +109,7 @@ def long_run(tmp_path_factory):
 @pytest.fixture(scope="module")
 def chem_run(tmp_path_factory):
     data, sim, seconds = run_golden(tmp_path_factory.mktemp("torch_chem"),
-                                    GOLD_CHEM)
+                                    GOLD_CHEM, CHEM_WRITERS)
     print(f"golden_chem: 60 steps in {seconds:.1f} s")
     return data, sim
 
@@ -122,20 +137,48 @@ def test_long_divergence_below_cell(long_run):
 
 @pytest.mark.parametrize("stamp", ["00_10_00", "01_00_00", "02_00_00"])
 def test_chem_atm(chem_run, stamp):
-    """Every column but the station flag ``stat`` (column 11), which the
-    station writer sets (io/writers.StationWriter of the JAX package,
-    not ported: the reference run wrote station output).  Here no writer
-    touches it, so it keeps the particle file's 0."""
+    """Every column, the station flag ``stat`` (column 11) included: the
+    station writer sets it on the device state after the particle file
+    of the same time is written, so a file shows the flags of the
+    previous writes."""
     data, _ = chem_run
     f = f"atm_2011_06_05_{stamp}.tab"
     ours, ref = load_tab(data / f), load_tab(GOLD_CHEM / f)
     assert ours.shape == ref.shape
     stat = 4 + 7
-    assert np.all(ours[:, stat] == 0.0) and np.any(ref[:, stat] == 1.0)
-    for c in range(ref.shape[1]):
-        if c == stat:
-            continue
-        rtol, atol = CHEM_COL_TOL.get(c, CHEM_DEFAULT)
-        np.testing.assert_allclose(ours[:, c], ref[:, c], rtol=rtol,
-                                   atol=atol, equal_nan=True,
-                                   err_msg=f"{f} column {c}")
+    assert np.any(ref[:, stat] == 1.0)
+    np.testing.assert_array_equal(ours[:, stat], ref[:, stat])
+    assert_tab_close(data / f, GOLD_CHEM / f, col_tol=CHEM_COL_TOL,
+                     default=CHEM_DEFAULT)
+
+
+# ----------------------- golden_chem's writers, as test_full_parity.py
+
+@pytest.mark.parametrize("stamp", ["00_00_00", "01_00_00", "02_00_00"])
+def test_chem_grid_output(chem_run, stamp):
+    data, _ = chem_run
+    f = f"grid_2011_06_05_{stamp}.tab"
+    assert_tab_close(data / f, GOLD_CHEM / f, default=(1e-4, 1e-9))
+
+
+@pytest.mark.parametrize("stamp", ["01_00_00", "02_00_00"])
+def test_chem_ens_output(chem_run, stamp):
+    data, _ = chem_run
+    f = f"ens_2011_06_05_{stamp}.tab"
+    # sigma columns accumulate mean-of-squares cancellation; 1%
+    assert_tab_close(data / f, GOLD_CHEM / f, default=(1e-2, 1e-6))
+
+
+@pytest.mark.parametrize("name", ["csi", "station", "prof", "sample"])
+def test_chem_table_output(chem_run, name):
+    data, _ = chem_run
+    assert_tab_close(data / f"{name}.tab", GOLD_CHEM / f"{name}.tab",
+                     default=(1e-4, 1e-6))
+
+
+def test_chem_vtk(chem_run):
+    data, _ = chem_run
+    ours = load_vtk_points(data / "atm_00003.vtk")
+    ref = load_vtk_points(GOLD_CHEM / "atm_00003.vtk")
+    assert ours.shape == ref.shape and ref.size > 0
+    np.testing.assert_allclose(ours, ref, rtol=1e-4, atol=1e-4)

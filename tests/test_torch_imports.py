@@ -30,7 +30,8 @@ def test_port_imports_no_jax():
                  "met.build", "met.write_nc", "physics.chem",
                  "utils.timers", "tools._cli", "tools.trac", "perf.probe",
                  "perf.rk_errors", "perf.lane_sigma", "physics.convection",
-                 "physics.bound", "physics.mixing", "physics.depo"):
+                 "physics.bound", "physics.mixing", "physics.depo",
+                 "io.writers", "io.obs", "io.kernel"):
         assert "mptrac_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -306,15 +306,8 @@ def test_unported_gate_raises(mid):
         with pytest.raises(NotImplementedError, match=match):
             tpipe.run_timestep(ctl, setup["tclim"], setup["tmet"], ta, tc,
                                720.0, flags=flags, pack=setup["tpack"])
-    # the zeta/eta and model-level advection, with and without a pack
-    for vert in (1, 2, 3):
-        ctl = setup["tctl"].replace(advect_vert_coord=vert)
-        with pytest.raises(NotImplementedError, match="interp_4d_zeta"):
-            tpipe.run_timestep(ctl, setup["tclim"], setup["tmet"], ta, tc,
-                               720.0, pack=None)
-        with pytest.raises(NotImplementedError, match="interp_4d_zeta"):
-            tpipe.run_timestep(ctl, setup["tclim"], setup["tmet"], ta, tc,
-                               720.0, pack=setup["tpack"])
+    # (the zeta/eta and model-level advection are ported:
+    # tests/test_torch_zeta.py)
     # a climatological quantity of module_meteo is ported now: without
     # its table in the Clim the step runs and leaves the quantity alone
     # (tests/test_torch_clim.py holds the quantities themselves)

@@ -330,15 +330,13 @@ def test_cli_usage_and_defaults(tmp_path, capsys):
 # ------------------------------------------------- what is not ported
 
 @pytest.mark.parametrize("args,match", [
-    (("GRID_BASENAME", "grid"), "GridWriter"),
-    (("ENS_BASENAME", "ens"), "EnsWriter"),
-    (("CSI_BASENAME", "csi"), "CsiWriter"),
-    (("PROF_BASENAME", "prof"), "ProfWriter"),
-    (("SAMPLE_BASENAME", "sample"), "SampleWriter"),
-    (("STAT_BASENAME", "station"), "StationWriter"),
-    (("VTK_BASENAME", "vtk"), "VtkWriter"),
     (("MET_TYPE", "1"), "bin_io"),
     (("ATM_TYPE_OUT", "3"), "write_atm_clams"),
+    (("TURB_PBL_SCHEME", "1"), "module_diff_pbl"),
+    (("QNT_NAME[9]", "rp", "QNT_NAME[10]", "rhop"), "module_sedi"),
+    (("ISOSURF", "1"), "module_isosurf"),
+    (("RADIO_DECAY", "1"), "module_radio_decay"),
+    (("KPP_CHEM", "1"), "module_kpp_chem"),
 ])
 def test_unported_gate_raises_by_name(fcase, args, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -379,6 +377,82 @@ def test_ported_module_runs_and_agrees_with_jax(tmp_path, args):
     for q in QNT:
         np.testing.assert_allclose(ta.q[q].numpy(), np.asarray(ja.q[q]),
                                    rtol=1e-5, atol=1e-12, err_msg=q)
+
+
+def _obs_file(path, rng, n=240):
+    """Observations over the globe at the first three step times of the
+    case (the CSI, profile and sample writers read them)."""
+    t = np.sort(T0 + rng.choice([0.0, 120.0, 240.0], n))
+    rows = np.stack([t, rng.uniform(1.0, 25.0, n), rng.uniform(-180, 180, n),
+                     rng.uniform(-85, 85, n), 10.0 ** rng.uniform(-9, -3, n)],
+                    axis=-1)
+    np.savetxt(path, rows, fmt="%.10g")
+    return str(path)
+
+
+#: every output writer as the writer cases run them (golden_chem's
+#: station, a coarse grid, observations over the globe); ``stat`` and
+#: ``ens`` take the places of the case's last two quantities
+WRITER_ARGS = (
+    "QNT_NAME[9]", "stat", "QNT_NAME[10]", "ens", "MOLMASS", "64.066",
+    "GRID_BASENAME", "grid", "GRID_DT_OUT", "240", "GRID_NX", "36",
+    "GRID_NY", "18", "GRID_NZ", "5", "GRID_Z0", "0", "GRID_Z1", "25",
+    "ENS_BASENAME", "ens", "ENS_DT_OUT", "240",
+    "CSI_BASENAME", "csi", "CSI_OBSFILE", "OBS", "CSI_DT_OUT", "240",
+    "CSI_NX", "36", "CSI_NY", "18", "CSI_OBSMIN", "1e-6",
+    "CSI_MODMIN", "1e-13",
+    "PROF_BASENAME", "prof", "PROF_OBSFILE", "OBS", "PROF_NX", "36",
+    "PROF_NY", "18", "PROF_NZ", "25", "PROF_Z1", "25",
+    "SAMPLE_BASENAME", "sample", "SAMPLE_OBSFILE", "OBS",
+    "SAMPLE_DX", "1000", "SAMPLE_DZ", "5",
+    "STAT_BASENAME", "station", "STAT_LON", "-72", "STAT_LAT", "-40.5",
+    "STAT_R", "4000", "VTK_BASENAME", "vtk", "VTK_DT_OUT", "240")
+
+
+@pytest.fixture(scope="module")
+def writer_runs(tmp_path_factory):
+    """Both packages' ``run_trac`` with every writer on (float64, the case
+    of ``make_case`` without the mesoscale diffusion, three steps)."""
+    tmp = tmp_path_factory.mktemp("writers")
+    obs = _obs_file(tmp / "obs.tab", np.random.default_rng(9))
+    run = tuple(obs if a == "OBS" else a for a in WRITER_ARGS) + (
+        "ATM_BASENAME", "-", "T_STOP", f"{T0 + 240.0:.2f}")
+    jdir = make_case(tmp / "jax", meso=False)
+    tdir = make_case(tmp / "torch", meso=False)
+    jrun_trac(jdir, "trac.ctl", "atm_in.tab", list(run))
+    tsim = trun_trac(tdir, "trac.ctl", "atm_in.tab", run, device="cpu")
+    assert tsim.timers.as_dict()["RUN_TIMESTEP"]["count"] == 3
+    return jdir, tdir, tsim
+
+
+@pytest.mark.parametrize("base", ["grid", "ens", "csi", "prof", "sample",
+                                  "station", "vtk"])
+def test_writer_runs_and_agrees_with_jax(writer_runs, base):
+    """Each output writer through ``run_trac`` in both packages: the same
+    files, and in them the same numbers at the precision of their ``%g``
+    print (rtol 1e-5) and the same counts.  These were cases of
+    test_unported_gate_raises_by_name while the writers raised;
+    tests/test_torch_output.py holds each writer on one state at rtol
+    1e-12."""
+    from test_full_parity import load_tab, load_vtk_points
+    jdir, tdir, tsim = writer_runs
+    names = sorted(f for f in os.listdir(jdir) if f.startswith(base))
+    assert names and sorted(f for f in os.listdir(tdir)
+                            if f.startswith(base)) == names
+    rows = 0
+    for name in names:
+        a, b = os.path.join(tdir, name), os.path.join(jdir, name)
+        if name.endswith(".vtk"):
+            x, y = load_vtk_points(a), load_vtk_points(b)
+        else:
+            x, y = load_tab(a), load_tab(b)
+        assert x.shape == y.shape, name
+        rows += y.shape[0]
+        np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-12,
+                                   equal_nan=True, err_msg=name)
+    assert rows > 0
+    if base == "station":
+        assert int((tsim.atm.q["stat"] == 1).sum()) == rows
 
 
 def test_checkpoint_raises_by_name(fcase):
