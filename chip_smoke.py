@@ -91,7 +91,24 @@ non-zero code and prints no result.  Phases, each of which must pass:
     launches, the met files' seconds, peak memory;
 17. golden_zeta: ``run_trac`` on the card in float64 on a copy of
     ``parity/golden_zeta``, held at tests/test_zeta_parity.py's
-    tolerances.
+    tolerances;
+18. pbl path: a radionuclide release near the ground, the flagship with
+    the PBL scheme, sedimentation and radioactive decay (``PBL_QNT``,
+    ``PBL_ARGS``) over a boundary layer planted on the synthetic met
+    (``plant_pbl``), fused, N parcels: ms a step, the new modules' ms,
+    the share of parcels in each branch of the PBL scheme;
+19. iso path: isentropic trajectories, the flagship with ``ISOSURF 3``
+    and the threefry generator, N parcels, and one threefry draw of 3N
+    normals beside a Squares draw;
+20. kpp path: KPP chemistry on the chemistry rung at ``KPP_N`` parcels,
+    1 + 3 steps: each module_kpp_chem call's ms and Rosenbrock steps;
+21. checkpoint: the pbl path at ``CKPT_N`` parcels, 4 steps against 2 +
+    a checkpoint + a resumed Simulation's 2, bit for bit; the save and
+    load seconds and the file's bytes;
+22. card against CPU of the new modules (``phase_slice_vs_cpu``): the
+    PBL scheme, each isosurface mode (4 with a balloon file), KPP and
+    all modules at once, fused float32 and exact float64, and the
+    threefry bits of both devices.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -257,14 +274,29 @@ def phase_build():
     return usage
 
 
-def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base"):
+def rng3_draws(ctl):
+    """``module_rng3`` calls a step: the turbulent diffusion, the PBL
+    scheme and the mesoscale diffusion draw 3n normals each."""
+    if not ctl.diffusion:
+        return 0
+    turb = any(v > 0 for v in (ctl.turb_dx_pbl, ctl.turb_dz_pbl,
+                                ctl.turb_dx_trop, ctl.turb_dz_trop,
+                                ctl.turb_dx_strat, ctl.turb_dz_strat))
+    return (int(turb) + int(ctl.turb_pbl_scheme == 1)
+            + int(ctl.turb_mesox > 0 or ctl.turb_mesoz > 0))
+
+
+def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base",
+                   prepare=None, warmup=WARMUP_STEPS):
     """The flagship (rung ``phys`` of its physics ladder) through
     ``Simulation`` with the pack that its ``TPU_FAST`` asks for: initial
-    sort, warm-up steps, timed steps.  Launch counts are zeroed just
-    before and read just after.  Checks what every path must show
-    (finite state, moved parcels, the RNG counter, the mass decay, or
-    with the chemistry a loss beyond it, parcel times, T = 280 K, the
-    sorts) and returns (sim, counts, stats)."""
+    sort, warm-up steps, timed steps.  ``prepare(met01, atm)``, where
+    given, sets the met fields and the parcels' values a path needs
+    before the run.  Launch counts are zeroed just before and read just
+    after.  Checks what every path must show (finite state, moved
+    parcels, the RNG counter, the mass decay, or with the chemistry a
+    loss beyond it, parcel times, T = 280 K, the sorts) and returns
+    (sim, counts, stats)."""
     from mptrac_tpu_torch import flagship
     from mptrac_tpu_torch.ops import _cuda
     from mptrac_tpu_torch.sim import FixedMet, Simulation
@@ -273,6 +305,8 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base"):
     ctl, clim, met01, atm, cache = flagship.make_setup(
         n, *GRID, extra_args=("SORT_DT", str(int(SORT_DT))) + extra_args,
         device="cuda", phys=phys)
+    if prepare is not None:
+        prepare(met01, atm)
     sim = Simulation(ctl, atm, clim, met=FixedMet(met01), cache=cache)
     ctl = sim.ctl
     del atm, cache
@@ -280,7 +314,7 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base"):
     say(f"[{tag}] set-up of {n} parcels on {GRID[0]}x{GRID[1]}x{GRID[2]} "
         f"in {time.time() - t0:.1f} s")
     dt_mod = ctl.dt_mod
-    total = WARMUP_STEPS + steps
+    total = warmup + steps
     ts = [dt_mod * (i + 1) for i in range(total)]
 
     torch.cuda.reset_peak_memory_stats()
@@ -292,7 +326,7 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base"):
     sort_peak = torch.cuda.max_memory_allocated()
     lon_sorted = sim.atm.lon.clone()
     t0 = time.time()
-    sim.run(write_output=False, ts=ts[:WARMUP_STEPS])
+    sim.run(write_output=False, ts=ts[:warmup])
     torch.cuda.synchronize()
     warm_s = time.time() - t0
     # (the loop built the tables that TPU_FAST asks for at its first step)
@@ -304,7 +338,7 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base"):
     moved = float((sim.atm.lon - lon_sorted).abs().max())
     del lon_sorted
     t0 = time.time()
-    sim.run(write_output=False, ts=ts[WARMUP_STEPS:])
+    sim.run(write_output=False, ts=ts[warmup:])
     torch.cuda.synchronize()
     timed_s = time.time() - t0
     counts = dict(_cuda.launch_counts)       # ... and ends here
@@ -318,9 +352,10 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base"):
             raise RuntimeError(f"{tag}: non-finite values in {name}")
     if not moved > 1e-3:
         raise RuntimeError(f"{tag}: parcels did not move")
-    # two diffusion draws of 3n + 1 a step, and the convection's n + 1
+    # the diffusion draws of 3n + 1 a step, and the convection's n + 1
     conv = ctl.conv_mix_pbl or ctl.conv_cape >= 0
-    want_ctr = total * (2 * (3 * n + 1) + (n + 1 if conv else 0))
+    want_ctr = total * (rng3_draws(ctl) * (3 * n + 1)
+                        + (n + 1 if conv else 0))
     if c.rng_ctr != want_ctr:
         raise RuntimeError(f"{tag}: rng_ctr {c.rng_ctr}, expected "
                            f"{want_ctr}")
@@ -349,7 +384,8 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base"):
     # the timed steps the gather path, but where convection moves every
     # parcel to a random height each step (phys chem) the re-sort's
     # permutation is random too and takes the row path
-    both_paths = phys == "base" and steps >= TIMED_STEPS
+    both_paths = (phys == "base" and prepare is None
+                  and steps >= TIMED_STEPS)
     if (sim.nsorts != expect_sorts or k3["count"] != expect_sorts
             or k3["pack"] != k3["rows"]
             or k3["gather"] + k3["rows"] != expect_sorts
@@ -359,7 +395,7 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base"):
     stats = {
         "phys": phys, "n_parcels": n, "grid": list(GRID),
         "steps_timed": steps,
-        "steps_warmup": WARMUP_STEPS, "resorts": sim.nsorts - 1,
+        "steps_warmup": warmup, "resorts": sim.nsorts - 1,
         "initial_sort_s": sort0_s, "initial_sort_peak_bytes": sort_peak,
         "warmup_s": warm_s,
         "timed_s": timed_s, "ms_per_step": 1e3 * timed_s / steps,
@@ -443,6 +479,424 @@ def phase_chem_path(torch, n, steps, profile):
     return sim, counts
 
 
+# ------------------------------- the physics that no golden set runs
+
+#: a radionuclide release near the ground (pbl path): 1 um particles of
+#: 2500 kg/m^3 (sedimentation), radon with its lead, caesium, iodine
+PBL_QNT = ("t", "m", "rp", "rhop", "Arn222", "Apb210", "Acs137", "Ai131")
+#: the PBL scheme and radioactive decay; the vertical mesoscale diffusion
+#: stays off beside the PBL scheme: both keep their vertical perturbation
+#: in uvwp[2], the PBL scheme in m/s, the mesoscale diffusion in hPa/s,
+#: so a PBL perturbation of 1 m/s becomes a mesoscale step of 180 hPa
+#: (in both packages; ROADMAP section 3, F7)
+PBL_ARGS = ("TURB_PBL_SCHEME", "1", "RADIO_DECAY", "1", "TURB_MESOZ", "0")
+#: isentropic trajectories with the threefry generator
+ISO_ARGS = ("ISOSURF", "3", "RNG_TYPE", "2")
+#: KPP chemistry on the chemistry rung, every step
+KPP_QNT = ("t", "m", "Cx", "Coh", "Cho2", "Ch2o2", "Co3p", "Co1d", "Ch",
+           "mloss_kpp")
+KPP_ARGS = ("KPP_CHEM", "1", "DT_KPP", "180")
+#: KPP's parcels and steps: on the order of a volcanic SO2 chemistry run,
+#: not the flagship's 100,663,296 (PERF.md section 4: the cut and why)
+KPP_N = 1 << 20
+KPP_WARMUP, KPP_STEPS = 1, 3
+#: the checkpoint phase's parcels and steps (a checkpoint after step 2)
+CKPT_N = 4_194_304
+CKPT_STEPS = 4
+
+
+def qnt_args(names):
+    out = ("NQ", str(len(names)))
+    for k, name in enumerate(names):
+        out += (f"QNT_NAME[{k}]", name)
+    return out
+
+
+def plant_pbl(torch, met01, atm, seed=1):
+    """A boundary layer over the synthetic met, in place, varying with
+    longitude and latitude: 0.5-2 km deep, sensible heat flux -50 to
+    300 W/m^2, surface stresses 0.05-0.3 N/m^2 (the synthetic met has
+    zero flux and stress, where the PBL scheme sees only its neutral
+    regime); and the parcels of a release near the ground: pressures
+    uniform in 700-1010 hPa (drawn from ``seed``), 1 um
+    particles of 2500 kg/m^3, activities of 1000 Bq (lead 0)."""
+    from mptrac_tpu_torch.constants import H0
+    lon, lat = met01.lon[0], met01.lat[0]
+    x = torch.deg2rad(lon.double())[:, None]
+    y = torch.deg2rad(lat.double())[None, :]
+    f2 = met01.fields2d
+
+    def put(name, v):
+        f2[name].copy_(v.to(f2[name].dtype).expand_as(f2[name]))
+
+    depth = 0.5 + 1.5 * (0.5 + 0.5 * torch.sin(x) * torch.cos(y))
+    put("pbl", f2["ps"][0].double() * torch.exp(-depth / H0))
+    put("shf", -50.0 + 350.0 * (0.5 + 0.5 * torch.cos(2.0 * x)
+                                * torch.cos(y)))
+    put("ess", 0.05 + 0.25 * (0.5 + 0.5 * torch.sin(3.0 * y) + 0.0 * x))
+    put("nss", 0.05 + 0.25 * (0.5 + 0.5 * torch.cos(x) + 0.0 * y))
+    # (drawn on the host, so that every device gets the same parcels)
+    gen = torch.Generator().manual_seed(seed)
+    atm.p.copy_(700.0 + 310.0 * torch.rand(atm.p.shape, generator=gen,
+                                           dtype=torch.float64))
+    for name, v in (("rp", 1.0), ("rhop", 2500.0), ("Arn222", 1e3),
+                    ("Apb210", 0.0), ("Acs137", 1e3), ("Ai131", 1e3)):
+        if name in atm.q:
+            atm.q[name].fill_(v)
+
+
+def module_ms(torch, sim, ts, targets):
+    """ms a step of each ``(owner, name)`` of ``targets`` by CUDA events
+    over the steps ``ts`` (after the timed steps)."""
+    timing = Timing(torch)
+    for owner, name, tag in targets:
+        timing.wrap(owner, name, tag)
+    try:
+        sim.run(write_output=False, ts=ts)
+    finally:
+        timing.restore()
+    return {tag: sum(timing.ms(tag)) / len(ts) for _, _, tag in targets}
+
+
+def branch_shares(torch, sim):
+    """Share of the live parcels in each branch of the PBL scheme."""
+    from mptrac_tpu_torch.physics import pbl
+    code = pbl.pbl_branches(sim.ctl, sim.cache, sim.met.get(0.0), sim.atm)
+    counts = torch.bincount(code.long(), minlength=len(pbl.BRANCHES))
+    return {b: int(c) / sim.atm.np
+            for b, c in zip(pbl.BRANCHES, counts.tolist())}
+
+
+def phase_pbl_path(torch, n, steps, profile):
+    """A radionuclide release near the ground on the fused path: the
+    flagship with the PBL scheme, sedimentation and radioactive decay
+    (``PBL_QNT``, ``PBL_ARGS``) over the planted boundary layer, at N
+    parcels: ms a step, the new modules' ms, the share of parcels in each
+    branch of the PBL scheme, peak memory, launch counts."""
+    from mptrac_tpu_torch.physics import decay, pbl, sedi
+    sim, counts, stats = drive_flagship(
+        torch, "pbl", n, steps, profile,
+        ("TPU_FAST", "2") + qnt_args(PBL_QNT) + PBL_ARGS,
+        prepare=lambda met01, atm: plant_pbl(torch, met01, atm))
+    total = WARMUP_STEPS + steps
+    if counts["rk_fused_advect"] != total or counts["sfc_interp"] < total:
+        raise RuntimeError(f"pbl path: K1/K2 launches {counts}")
+    a = sim.atm
+    shares = branch_shares(torch, sim)
+    if not (sum(v > 0 for k, v in shares.items() if k != "inactive") >= 3
+            and 0.2 < 1.0 - shares["inactive"] < 0.8):
+        raise RuntimeError(f"pbl path: branch shares {shares}")
+    if not (float(a.q["Apb210"].min()) > 0.0
+            and float(a.q["Ai131"].max()) < 1e3
+            and float(sim.cache.uvwp[2].abs().max()) > 0.0):
+        raise RuntimeError("pbl path: no in-growth, decay or perturbation")
+    dt_mod = sim.ctl.dt_mod
+    t_end = dt_mod * total
+    stats["module_ms"] = module_ms(torch, sim, [
+        t_end + dt_mod * (i + 1) for i in range(2)], [
+        (pbl, "module_diff_pbl", "module_diff_pbl"),
+        (pbl, "module_rng3", "module_diff_pbl rng3"),
+        (sedi, "module_sedi", "module_sedi"),
+        (decay, "module_radio_decay", "module_radio_decay")])
+    stats["pbl_branch_shares"] = shares
+    say(json.dumps({"pbl_path": stats}))
+    return sim
+
+
+def phase_iso_path(torch, n, steps, profile):
+    """Isentropic trajectories on the fused path: the flagship with
+    ``ISOSURF 3`` and the threefry generator (``RNG_TYPE 2``) at N
+    parcels.  The synthetic met's T is uniform, so every parcel keeps its
+    pressure.  Also the ms of one 3N-normal threefry draw beside a
+    Squares draw."""
+    from mptrac_tpu_torch.ops import rng
+    from mptrac_tpu_torch.physics import diffusion, isosurf
+    p0 = {}
+
+    def keep_p(met01, atm):
+        p0["p"] = atm.p.clone()
+
+    sim, counts, stats = drive_flagship(
+        torch, "iso", n, steps, profile, ("TPU_FAST", "2") + ISO_ARGS,
+        prepare=keep_p)
+    total = WARMUP_STEPS + steps
+    if counts["rk_fused_advect"] != total:
+        raise RuntimeError(f"iso path: K1 launches {counts}")
+    # the sort permuted the parcels and their isentropes together
+    c = sim.cache
+    if c.iso_var.shape != sim.atm.p.shape:
+        raise RuntimeError("iso path: no isosurface variable per parcel")
+    theta = sim.atm.q["t"] * (1000.0 / sim.atm.p) ** 0.286
+    iso_err = float((theta / c.iso_var - 1.0).abs().max())
+    p_sorted = torch.sort(sim.atm.p).values
+    p_err = float((p_sorted / torch.sort(p0.pop("p")).values - 1.0)
+                  .abs().max())
+    if not (iso_err < 1e-5 and p_err < 1e-5):
+        raise RuntimeError(f"iso path: off the isentropes by {iso_err:.2e}"
+                           f", pressures by {p_err:.2e}")
+    dt_mod = sim.ctl.dt_mod
+    t_end = dt_mod * total
+    stats["module_ms"] = module_ms(torch, sim, [
+        t_end + dt_mod * (i + 1) for i in range(2)], [
+        (isosurf, "module_isosurf", "module_isosurf"),
+        (diffusion, "module_rng3", "module_rng3 (threefry, 2 a step)")])
+    ctr = c.rng_ctr
+    draws = {}
+    for tag, kind in (("threefry", 2), ("squares", 1)):
+        draws[tag] = time_ms(lambda: rng.module_rng3(
+            kind, ctr, n, dtype=torch.float32, device="cuda"), torch)
+    stats.update(isentrope_rel_err=iso_err, pressure_rel_err=p_err,
+                 rng3_ms_3n_normals=draws)
+    say(json.dumps({"iso_path": stats}))
+    return sim
+
+
+def prepare_kpp(torch, met01, atm):
+    """The met and parcels of tests/test_kpp.py: H2O 5e-6 and O3 2e-6;
+    SO2 1e-9, OH 1e-13, HO2 1e-12, H2O2 1e-10."""
+    met01.fields3d["h2o"].fill_(5e-6)
+    met01.fields3d["o3"].fill_(2e-6)
+    for name, v in (("Cx", 1e-9), ("Coh", 1e-13), ("Cho2", 1e-12),
+                    ("Ch2o2", 1e-10)):
+        atm.q[name].fill_(v)
+
+
+def phase_kpp_path(torch, n, profile):
+    """KPP chemistry on the chemistry rung (fused path, phys ``chem``
+    plus ``KPP_CHEM 1``, ``DT_KPP 180``) at ``KPP_N`` parcels, 1 + 3
+    steps: ms a step, the chunk size, the ms of each module_kpp_chem
+    call and the Rosenbrock steps of its slowest parcel and their mean."""
+    from mptrac_tpu_torch.physics import kpp
+    calls = []
+    orig = kpp.module_kpp_chem
+
+    def timed(ctl, cache, clim, met01, atm, stats=None):
+        st = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = orig(ctl, cache, clim, met01, atm, stats=st)
+        torch.cuda.synchronize()
+        st["ms"] = 1e3 * (time.time() - t0)
+        calls.append(st)
+        return out
+
+    kpp.module_kpp_chem = timed
+    try:
+        sim, counts, stats = drive_flagship(
+            torch, "kpp", n, KPP_STEPS, profile,
+            ("TPU_FAST", "2") + qnt_args(KPP_QNT) + KPP_ARGS, phys="chem",
+            prepare=lambda met01, atm: prepare_kpp(torch, met01, atm),
+            warmup=KPP_WARMUP)
+    finally:
+        kpp.module_kpp_chem = orig
+    total = KPP_WARMUP + KPP_STEPS
+    a = sim.atm
+    if len(calls) != total or counts["rk_fused_advect"] != total:
+        raise RuntimeError(f"kpp path: {len(calls)} KPP calls, launches "
+                           f"{counts}")
+    if not (float(a.q["mloss_kpp"].max()) > 0.0
+            and bool((a.q["Coh"] != 1e-13).any())
+            and float(a.q["Cx"].min()) >= 0.0):
+        raise RuntimeError("kpp path: the chemistry changed nothing")
+    stats.update(kpp_chunk=kpp.KPP_CHUNK, kpp_calls=calls)
+    say(json.dumps({"kpp_path": stats}))
+    return sim
+
+
+def phase_checkpoint(torch, n):
+    """The pbl path's configuration at ``CKPT_N`` parcels: 4 steps
+    uninterrupted; 2 steps with a checkpoint after step 2, and a fresh
+    Simulation resumed from it for steps 3 and 4.  The final states are
+    held bit for bit.  Prints the seconds of a save and a load and the
+    file's bytes."""
+    from mptrac_tpu_torch import checkpoint, flagship
+    from mptrac_tpu_torch.sim import FixedMet, Simulation
+    args = (("SORT_DT", str(int(SORT_DT)), "TPU_FAST", "2")
+            + qnt_args(PBL_QNT) + PBL_ARGS)
+
+    def sim(**kw):
+        ctl, clim, met01, atm, cache = flagship.make_setup(
+            n, *GRID, extra_args=args, device="cuda")
+        plant_pbl(torch, met01, atm)
+        return Simulation(ctl, atm, clim, met=FixedMet(met01), cache=cache,
+                          **kw)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        full = sim()
+        dt_mod = full.ctl.dt_mod
+        ts = [dt_mod * (i + 1) for i in range(CKPT_STEPS)]
+        full.sort()
+        full.run(write_output=False, ts=ts)
+        ck = os.path.join(tmp, "state.npz")
+        first = sim(checkpoint_file=ck, checkpoint_dt=2 * dt_mod)
+        first.sort()
+        first.run(write_output=False, ts=ts[:2])
+        del first
+        resumed = sim()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        resumed.resume(ck)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        resumed.run(write_output=False, ts=ts[2:])
+        a, b = resumed.atm, full.atm
+        same = {name: bool(torch.equal(getattr(a, name), getattr(b, name)))
+                for name in ("time", "lon", "lat", "p")}
+        same.update({f"q_{k}": bool(torch.equal(a.q[k], b.q[k]))
+                     for k in b.q})
+        same["uvwp"] = bool(torch.equal(resumed.cache.uvwp, full.cache.uvwp))
+        same["rng_ctr"] = resumed.cache.rng_ctr == full.cache.rng_ctr
+        if not all(same.values()):
+            raise RuntimeError(f"checkpoint: resumed run differs {same}")
+        if not float(full.cache.uvwp[2].abs().max()) > 0.0:
+            raise RuntimeError("checkpoint: no PBL perturbation to carry")
+        t0 = time.time()
+        checkpoint.save_checkpoint(os.path.join(tmp, "again.npz"),
+                                   full.atm, full.cache, ts[-1])
+        save_s = time.time() - t0
+        nbytes = os.path.getsize(ck)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(json.dumps({"checkpoint": {
+        "n_parcels": n, "steps": CKPT_STEPS, "checkpoint_after_step": 2,
+        "bit_exact": True, "save_s": save_s, "load_s": load_s,
+        "file_bytes": nbytes}}))
+
+
+#: card against CPU of the new modules: extra quantities' relative
+#: tolerances (the positions, T, m and uvwp keep TOLS_F32 / TOLS_F64)
+SLICE_RTOL32 = 1e-4
+SLICE_RTOL64 = 1e-9
+#: ... but the PBL scheme's pressures: its AR(1) perturbations take the
+#: two devices' normals (a few float32 ulp apart, see
+#: phase_card_vs_cpu) times sigma_w ~1 m/s times 180 s a step into the
+#: height, 0.14 hPa a metre near the ground: 1.3e-5 hPa in float64 after
+#: ten steps; in float32 the height-pressure round trip and the
+#: reflections add ~20 ulp of p (1.2e-3 hPa, measured on one H100)
+TOLS_PBL_F32 = dict(TOLS_CHEM_F32, p=5e-3)
+TOLS_PBL_F64 = dict(TOLS_F64, p=5e-5)
+#: KPP in float64 through cuBLAS/cuSOLVER on the card and LAPACK on the
+#: CPU: the LU ulps grow over hundreds of Rosenbrock steps (the port
+#: against JAX: 1.8e-6, tests/test_torch_kpp.py), and mixing ratios
+#: below ~1e-18 are below the solver's resolution
+KPP_RTOL, KPP_ATOL = 1e-4, 1e-18
+
+
+def write_balloon(path):
+    """A balloon track over the card-vs-CPU run's 1800 s: pressures
+    from 200 to 80 hPa."""
+    with open(path, "w") as f:
+        for k in range(11):
+            f.write(f"{-60.0 + 200.0 * k:.1f} {200.0 - 12.0 * k:.3f}\n")
+
+
+def phase_slice_vs_cpu(torch):
+    """The new modules and the all-modules step at the tests' size on
+    the card and on the CPU, on the fused float32 path and the exact
+    float64 path: the PBL scheme with sedimentation and radioactive
+    decay over the planted boundary layer (2048 parcels, 10 steps), the
+    isosurface in each mode (mode 4 with a balloon file in a temporary
+    directory) with the threefry generator, KPP and everything at once
+    (512 parcels, 3 steps); and the threefry bits of both devices, equal
+    bit for bit."""
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch.ops import rng
+    from mptrac_tpu_torch.sim import FixedMet, Simulation
+
+    f32, f64 = torch.float32, torch.float64
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_balloon_")
+    balloon = os.path.join(tmp, "balloon.tab")
+    write_balloon(balloon)
+    all_qnt = tuple(dict.fromkeys(PBL_QNT + KPP_QNT))
+    # (name, quantities, control parameters, rung, parcels, steps); KPP
+    # at fewer parcels and steps: its CPU side takes the longest
+    configs = [("pbl", PBL_QNT, PBL_ARGS, "base", 2048, 10)]
+    configs += [(f"iso{k}", ("t", "m"), ("ISOSURF", str(k), "RNG_TYPE", "2",
+                                         "BALLOON", balloon), "base", 2048,
+                 10) for k in (1, 2, 3, 4)]
+    configs += [("kpp", KPP_QNT, KPP_ARGS, "chem", 512, 3),
+                ("all_modules", all_qnt, PBL_ARGS + KPP_ARGS, "chem", 512,
+                 3)]
+    report, failed = {}, []
+    try:
+        for name, qnt, extra, phys, n, steps in configs:
+            pbl_on = "TURB_PBL_SCHEME" in extra
+            for path, fast, dtype, tols, rtol in (
+                    ("fused", "2", f32,
+                     TOLS_PBL_F32 if pbl_on else TOLS_CHEM_F32, SLICE_RTOL32),
+                    ("exact_f64", "0", f64,
+                     TOLS_PBL_F64 if pbl_on else TOLS_F64, SLICE_RTOL64)):
+                out = {}
+                for dev in ("cuda", "cpu"):
+                    ctl, clim, met01, atm, cache = flagship.make_setup(
+                        n, nx=36, ny=19, nz=8,
+                        extra_args=("SORT_DT", "900", "TPU_FAST", fast)
+                        + qnt_args(qnt) + extra, device=dev, dtype=dtype,
+                        phys=phys)
+                    if "rp" in qnt:
+                        plant_pbl(torch, met01, atm)
+                    if "Cx" in qnt:
+                        prepare_kpp(torch, met01, atm)
+                    s = Simulation(ctl, atm, clim, met=FixedMet(met01),
+                                   cache=cache)
+                    s.sort()
+                    s.run(write_output=False,
+                          ts=[ctl.dt_mod * (i + 1) for i in range(steps)])
+                    out[dev] = s
+                a, b = out["cuda"], out["cpu"]
+                tag = f"{name}_{path}"
+                if a.cache.rng_ctr != b.cache.rng_ctr:
+                    failed.append(f"{tag}: rng_ctr")
+                errs = {}
+                for key, x, y in (("lon", a.atm.lon, b.atm.lon),
+                                  ("lat", a.atm.lat, b.atm.lat),
+                                  ("p", a.atm.p, b.atm.p),
+                                  ("uvwp", a.cache.uvwp, b.cache.uvwp)):
+                    errs[key] = float((x.cpu() - y).abs().max())
+                    if not errs[key] <= tols[key]:
+                        failed.append(f"{tag}: {key} differs by "
+                                      f"{errs[key]:.3e} > {tols[key]:.1e}")
+                kpp_on = "Cx" in qnt
+                for key in qnt:
+                    x, y = a.atm.q[key].cpu().double(), b.atm.q[key].double()
+                    kpp_q = kpp_on and (key in KPP_QNT and key != "t")
+                    r, at = (KPP_RTOL, KPP_ATOL) if kpp_q else (rtol, 0.0)
+                    if key == "mloss_kpp":
+                        at = 1e-9
+                    bad = ~((x - y).abs() <= at + r * y.abs())
+                    errs[key] = float(((x - y).abs()
+                                       / y.abs().clamp(min=1e-300)).max())
+                    if bool(bad.any()):
+                        failed.append(f"{tag}: {key} differs by "
+                                      f"{errs[key]:.3e} rel. > {r:.1e}")
+                report[tag] = errs
+        bits = {}
+        for width in (32, 64):
+            key = rng.threefry_key(12345)
+            x = rng.threefry_bits(key, 0, 1 << 20, width, "cuda").cpu()
+            y = rng.threefry_bits(key, 0, 1 << 20, width, "cpu")
+            bits[f"bits{width}_equal"] = bool(torch.equal(x, y))
+            if not bits[f"bits{width}_equal"]:
+                failed.append(f"threefry bits ({width})")
+        for dtype, tol in ((f32, 1e-5), (f64, 1e-12)):
+            x, _ = rng.module_rng3(2, 12345, 1 << 18, dtype=dtype,
+                                   device="cuda")
+            y, _ = rng.module_rng3(2, 12345, 1 << 18, dtype=dtype,
+                                   device="cpu")
+            err = float(((x.cpu() - y).abs() / y.abs()).max())
+            bits[f"normal_{dtype}_max_rel_err"] = err
+            if not err <= tol:
+                failed.append(f"threefry normals ({dtype}) {err:.2e} > "
+                              f"{tol:.0e}")
+        report["threefry"] = bits
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(json.dumps({"card_vs_cpu_slice": report}))
+    if failed:
+        raise RuntimeError("card vs CPU: " + "; ".join(failed))
+
+
 def profile_steps(torch, sim, ts2):
     """Where a step's device time goes: by module (CUDA events around
     each module of the pipeline, the random draws counted apart from
@@ -451,8 +905,9 @@ def profile_steps(torch, sim, ts2):
     from torch.profiler import ProfilerActivity, profile as prof
 
     from mptrac_tpu_torch.physics import (advect, bound, chem, convection,
-                                          decay, depo, diffusion, meteo,
-                                          mixing, position, timesteps)
+                                          decay, depo, diffusion, isosurf,
+                                          kpp, meteo, mixing, pbl, position,
+                                          sedi, timesteps)
     spans = []
 
     def wrap(mod, name):
@@ -488,7 +943,12 @@ def profile_steps(torch, sim, ts2):
                wrap(chem, "module_h2o2_chem"),
                wrap(chem, "module_tracer_chem"),
                wrap(depo, "module_wet_depo"),
-               wrap(depo, "module_dry_depo")]
+               wrap(depo, "module_dry_depo"),
+               wrap(pbl, "module_diff_pbl"),
+               wrap(sedi, "module_sedi"),
+               wrap(isosurf, "module_isosurf"),
+               wrap(decay, "module_radio_decay"),
+               wrap(kpp, "module_kpp_chem")]
     try:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -503,6 +963,8 @@ def profile_steps(torch, sim, ts2):
     for name, a, b in spans:
         per[name] = per.get(name, 0.0) + a.elapsed_time(b) / len(ts2)
     # the draws run inside the two diffusion modules: take them out
+    # (the PBL scheme's draw is not among them: the scheme imports its
+    # own name of module_rng3)
     per["module_diff_turb+meso (without rng)"] = (
         per.pop("module_diff_turb") + per.pop("module_diff_meso")
         - per["module_rng3"])
@@ -2551,6 +3013,18 @@ def main():
     sim, counts = phase_chem_path(torch, args.np, args.steps, args.profile)
     del sim
     torch.cuda.empty_cache()
+    sim = phase_pbl_path(torch, args.np, args.steps, args.profile)
+    del sim
+    torch.cuda.empty_cache()
+    sim = phase_iso_path(torch, args.np, args.steps, args.profile)
+    del sim
+    torch.cuda.empty_cache()
+    sim = phase_kpp_path(torch, min(args.np, KPP_N), args.profile)
+    del sim
+    torch.cuda.empty_cache()
+    phase_checkpoint(torch, min(args.np, CKPT_N))
+    torch.cuda.empty_cache()
+    phase_slice_vs_cpu(torch)
     trac = phase_trac_path(torch, args.np)
     torch.cuda.empty_cache()
     phase_output_path(torch, args.np, trac)

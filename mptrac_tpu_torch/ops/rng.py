@@ -10,6 +10,13 @@ PyTorch has next to no unsigned 64-bit operators, so the chain runs on
 ``int64``: products and sums wrap mod 2^64 exactly like ``uint64``, but
 ``>>`` is an arithmetic shift, so every right shift is followed by a
 mask.  The counter itself is a Python int kept mod 2^64 on the host.
+
+RNG_TYPE 2 is the JAX package's ``jax.random`` threefry stream
+(``threefry2x32`` with 20 rounds, ``fold_in`` of the counter's low word
+into ``PRNGKey(0)``, the partitionable bit layout, JAX's uniform and
+normal), on ``int64`` words held in [0, 2^32).  Its bits and uniforms
+are JAX's bit for bit; the normals are ``sqrt(2) * erfinv(u)`` with
+PyTorch's ``erfinv``, which is not XLA's polynomial.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 #: Squares key (reference mptrac.c:5601, fixed, do not change)
@@ -165,11 +173,84 @@ def squares_normal3_f32(ctr: int, n: int, device="cuda"
     return out, (ctr + 3 * n + 1) & _M64
 
 
-def _require_squares(ctl_rng_type: int):
-    if ctl_rng_type not in (0, 1):
-        raise NotImplementedError(
-            f"RNG_TYPE {ctl_rng_type}: only the Squares generator "
-            "(types 0 and 1) is ported")
+#: rotation distances of threefry2x32's two groups of four rounds
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k1: int, k2: int, x0, x1):
+    """The Threefry-2x32 hash with 20 rounds (JAX ``prng.py``
+    ``_threefry2x32_lowering``) of the words ``x0``, ``x1`` under the key
+    ``(k1, k2)``.  The words are Python ints or int64 tensors holding
+    values in [0, 2^32); so are the results."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def threefry_key(ctr: int):
+    """``jax.random.fold_in(PRNGKey(0), uint32(ctr))``: the counter's low
+    word hashed under the zero key as the count pair (0, word)."""
+    return threefry2x32(0, 0, 0, ctr & _M32)
+
+
+def threefry_bits(key, start: int, count: int, width: int, device="cuda"):
+    """JAX's random bits (``_threefry_random_bits_partitionable``) of the
+    flat indices ``start .. start+count-1`` of a draw: each index, as a
+    64-bit count split into (hi, lo) words, hashed under ``key``.  Width
+    32 gives ``hi ^ lo`` of the hash in [0, 2^32), width 64 the int64
+    pattern of ``hi << 32 | lo``."""
+    i = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(key[0], key[1], (i >> 32) & _M32, i & _M32)
+    del i
+    return b1 ^ b2 if width == 32 else (b1 << 32) | b2
+
+
+def _bits_to_unit(bits, dtype):
+    """JAX's ``_uniform`` mantissa trick: the top mantissa bits under the
+    exponent of 1.0, as floats in [0, 1)."""
+    if dtype == torch.float32:
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    else:
+        f = (((bits >> 12) & ((1 << 52) - 1))
+             | 0x3FF0000000000000).view(torch.float64)
+    return f - 1.0
+
+
+def threefry_draw(ctr: int, n: int, shape, normal: bool, dtype,
+                  device="cuda") -> torch.Tensor:
+    """``jax.random.uniform`` (``normal`` False) or ``jax.random.normal``
+    of ``shape`` (``n`` elements) under the key of ``ctr``, in passes of
+    ``RNG_CHUNK`` elements.  float32 takes 32-bit draws, float64 64-bit
+    ones.  The normal is ``sqrt(2) * erfinv(u)`` with ``u`` uniform on
+    ``(nextafter(-1, 0), 1)``, as JAX's ``_normal_real``."""
+    dev = torch.device(device)
+    key = threefry_key(ctr)
+    width = 32 if dtype == torch.float32 else 64
+    out = torch.empty(n, dtype=dtype, device=dev)
+    lo = float(np.nextafter(np.array(-1.0, _NP[dtype]),
+                            np.array(0.0, _NP[dtype])))
+    # (1 - lo) rounds to 2.0 in both precisions, so u = 2 f + lo exactly
+    scale = float(np.array(1.0, _NP[dtype]) - np.array(lo, _NP[dtype]))
+    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=dtype, device=dev)
+    for s in range(0, n, RNG_CHUNK):
+        cnt = min(RNG_CHUNK, n - s)
+        f = _bits_to_unit(threefry_bits(key, s, cnt, width, dev), dtype)
+        if normal:
+            u = torch.clamp(f * scale + lo, min=lo)
+            torch.mul(sqrt2, torch.special.erfinv(u), out=out[s:s + cnt])
+        else:
+            torch.clamp(f, min=0.0, out=out[s:s + cnt])
+    return out.reshape(shape)
+
+
+_NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 def module_rng(ctl_rng_type: int, ctr: int, n: int, method: int,
@@ -179,9 +260,11 @@ def module_rng(ctl_rng_type: int, ctr: int, n: int, method: int,
     advanced counter, as the reference ``module_rng`` (c:5535) draws
     them with the Squares generator.  float32 uses the float32
     formulations (``squares_uniform_f32``, ``squares_normal_f32``),
-    float64 the reference's stream.  Only RNG_TYPE 0 and 1 (both
-    Squares) are ported."""
-    _require_squares(ctl_rng_type)
+    float64 the reference's stream.  RNG_TYPE 2 draws from threefry
+    (``threefry_draw``) and advances the counter by ``n + 1`` too."""
+    if ctl_rng_type not in (0, 1):
+        return (threefry_draw(ctr, n, (n,), method != 0, dtype, device),
+                (ctr + n + 1) & _M64)
     if dtype == torch.float32:
         if method == 0:
             u, ctr = squares_uniform_f32(ctr, n, device)
@@ -200,11 +283,15 @@ def module_rng3(ctl_rng_type: int, ctr: int, n: int,
     """Draw 3 standard normals per parcel as a component-major [3, n]
     tensor.
 
-    f64 (parity mode) reproduces the reference's exact interleaved
-    stream (module_rng method 1, c:5632-5648) and transposes; f32 uses
-    the contiguous formulation (squares_normal3_f32).  Only RNG_TYPE 0
-    and 1 (both Squares) are ported."""
-    _require_squares(ctl_rng_type)
+    RNG_TYPE 0 and 1 (Squares): f64 (parity mode) reproduces the
+    reference's exact interleaved stream (module_rng method 1,
+    c:5632-5648) and transposes; f32 uses the contiguous formulation
+    (squares_normal3_f32).  RNG_TYPE 2: JAX's threefry normals of shape
+    [3, n] (``threefry_draw``).  The counter advances by ``3n + 1``
+    either way."""
+    if ctl_rng_type not in (0, 1):
+        return (threefry_draw(ctr, 3 * n, (3, n), True, dtype, device),
+                (ctr + 3 * n + 1) & _M64)
     if dtype == torch.float32:
         return squares_normal3_f32(ctr, n, device)
     rs, ctr = squares_normal(ctr, 3 * n, device)

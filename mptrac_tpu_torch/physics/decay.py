@@ -1,14 +1,29 @@
-"""Exponential decay (reference module_decay, mptrac.c:4219-4258).
-Counterpart of the JAX package's ``physics/decay.py``; the radioactive
-decay chains are not ported yet."""
+"""Exponential and radioactive decay.
+
+Reference: module_decay (mptrac.c:4219-4258), module_radio_decay
+(c:5477-5535).  Counterpart of the JAX package's ``physics/decay.py``."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.physics.diffusion import tropo_weight
 from mptrac_tpu_torch.types import Atm, Cache, Clim
+
+_LN2 = math.log(2.0)
+
+#: decay constants [1/s] of the fixed chains (c:5487-5493)
+LAMBDA = {
+    "Arn222": _LN2 / (3.8235 * 86400.0),
+    "Apb210": _LN2 / (22.3 * 365.25 * 86400.0),
+    "Abe7": _LN2 / (53.22 * 86400.0),
+    "Acs137": _LN2 / (30.05 * 365.25 * 86400.0),
+    "Ai131": _LN2 / (8.02 * 86400.0),
+    "Axe133": _LN2 / (5.2474 * 86400.0),
+}
 
 
 def module_decay(ctl: Ctl, cache: Cache, clim: Clim, atm: Atm) -> Atm:
@@ -33,4 +48,33 @@ def module_decay(ctl: Ctl, cache: Cache, clim: Clim, atm: Atm) -> Atm:
                 active, q["loss_rate"] + 1.0 / tdec, q["loss_rate"])
     if "vmr" in q:
         q["vmr"] = torch.where(active, q["vmr"] * aux, q["vmr"])
+    return atm.replace(q=q)
+
+
+def module_radio_decay(ctl: Ctl, cache: Cache, atm: Atm) -> Atm:
+    """Fixed radioactive decay chains, incl. Rn-222 -> Pb-210 in-growth
+    (c:5477)."""
+    active = (cache.dt != 0.0) & atm.mask
+    dt = cache.dt
+    q = dict(atm.q)
+
+    if "Apb210" in q:
+        q["Apb210"] = torch.where(
+            active, q["Apb210"] * torch.exp(-dt * LAMBDA["Apb210"]),
+            q["Apb210"])
+    if "Arn222" in q:
+        old = q["Arn222"]
+        aux = torch.exp(-dt * LAMBDA["Arn222"])
+        lost = old * (1.0 - aux)
+        q["Arn222"] = torch.where(active, old * aux, old)
+        if "Apb210" in q:
+            q["Apb210"] = torch.where(
+                active,
+                q["Apb210"] + lost * LAMBDA["Apb210"] / LAMBDA["Arn222"],
+                q["Apb210"])
+        del aux, lost
+    for name in ("Abe7", "Acs137", "Ai131", "Axe133"):
+        if name in q:
+            q[name] = torch.where(
+                active, q[name] * torch.exp(-dt * LAMBDA[name]), q[name])
     return atm.replace(q=q)

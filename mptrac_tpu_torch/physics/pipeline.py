@@ -3,19 +3,21 @@
 Counterpart of the JAX package's ``physics/pipeline.py:31-207`` (the
 reference ``mptrac_run_timestep``, mptrac.c:7545-7694): the fixed
 module order with the enables resolved from Ctl on the host.  Eager:
-one call runs one step.  Ported: timesteps, position, advection
-on pressure levels (fused, unfused through the kernels, or exact), on
-model levels and in zeta/eta (``ADVECT_VERT_COORD`` 1-3, exact),
-turbulent and mesoscale diffusion, convection, meteo sampling, boundary
-conditions, decay, mixing, the chemistry grid, OH / H2O2 / tracer
-chemistry, wet and dry deposition, and the first-step initialisation
-(``init_modules``).  The pack decides the path: with
-``pack.cell`` the fused RK kernel (pressure levels only, as in the JAX
-step), with ``pack.packT`` the unfused kernels, without a pack (or with
-a float64 state) the exact interpolation.  Off pressure levels the
-advection is the exact model-level one, and the kernels' tables still
-serve the diffusion.  A gate that would reach a module that is not ported
-raises ``NotImplementedError`` naming it.
+one call runs one step.  Every module of the JAX step is ported: timesteps,
+position, advection on pressure levels (fused, unfused through the
+kernels, or exact), on model levels and in zeta/eta
+(``ADVECT_VERT_COORD`` 1-3, exact), turbulent diffusion, the PBL scheme
+(``TURB_PBL_SCHEME 1``), mesoscale diffusion, convection,
+sedimentation, the isosurface constraint (``ISOSURF`` 1-4), meteo
+sampling, boundary conditions, decay, mixing, the chemistry grid, OH /
+H2O2 / tracer chemistry, radioactive decay, KPP chemistry, wet and dry
+deposition, and the first-step initialisation (``init_modules``: the
+isosurface, the zeta coordinate, the chemistry).  The pack decides the
+path: with ``pack.cell`` the fused RK kernel (pressure levels only, as
+in the JAX step), with ``pack.packT`` the unfused kernels, without a
+pack (or with a float64 state) the exact interpolation.  Off pressure
+levels the advection is the exact model-level one, and the kernels'
+tables still serve the diffusion.
 """
 
 from __future__ import annotations
@@ -33,9 +35,13 @@ from mptrac_tpu_torch.physics import convection as m_conv
 from mptrac_tpu_torch.physics import decay as m_decay
 from mptrac_tpu_torch.physics import depo as m_depo
 from mptrac_tpu_torch.physics import diffusion as m_diff
+from mptrac_tpu_torch.physics import isosurf as m_isosurf
+from mptrac_tpu_torch.physics import kpp as m_kpp
 from mptrac_tpu_torch.physics import meteo as m_meteo
 from mptrac_tpu_torch.physics import mixing as m_mixing
+from mptrac_tpu_torch.physics import pbl as m_pbl
 from mptrac_tpu_torch.physics import position as m_position
+from mptrac_tpu_torch.physics import sedi as m_sedi
 from mptrac_tpu_torch.physics import timesteps as m_timesteps
 from mptrac_tpu_torch.types import Atm, Cache, Clim, Met
 
@@ -47,12 +53,6 @@ class StepFlags(NamedTuple):
     do_mixing: bool = True
     do_kpp: bool = True
     do_meteo: bool = True
-
-
-def _unported(module: str):
-    raise NotImplementedError(
-        f"run_timestep: the control parameters enable {module}, which "
-        "is not ported to mptrac_tpu_torch yet")
 
 
 def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
@@ -103,7 +103,7 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
 
     # PBL diffusion scheme
     if ctl.diffusion and ctl.turb_pbl_scheme == 1:
-        _unported("module_diff_pbl")
+        atm, cache = m_pbl.module_diff_pbl(ctl, cache, met01, atm)
 
     # Mesoscale diffusion
     if ctl.diffusion and (ctl.turb_mesox > 0 or ctl.turb_mesoz > 0):
@@ -117,11 +117,11 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
 
     # Sedimentation
     if ctl.qnt("rp") >= 0 and ctl.qnt("rhop") >= 0:
-        _unported("module_sedi")
+        atm = m_sedi.module_sedi(ctl, cache, met01, atm)
 
     # Isosurface
     if 1 <= ctl.isosurf <= 4:
-        _unported("module_isosurf")
+        atm = m_isosurf.module_isosurf(ctl, cache, met01, atm)
 
     # Check positions (final)
     atm = m_position.module_position(cache, met01, atm)
@@ -173,11 +173,11 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
 
     # Radioactive decay
     if ctl.radio_decay:
-        _unported("module_radio_decay")
+        atm = m_decay.module_radio_decay(ctl, cache, atm)
 
     # KPP full chemistry
-    if ctl.kpp_chem:
-        _unported("module_kpp_chem")
+    if ctl.kpp_chem and flags.do_kpp:
+        atm = m_kpp.module_kpp_chem(ctl, cache, clim, met01, atm)
 
     # Wet deposition
     if ((ctl.wet_depo_ic_a > 0 or ctl.wet_depo_ic_h[0] > 0)
@@ -198,7 +198,7 @@ def run_timestep(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache,
 def init_modules(ctl: Ctl, clim: Clim, met01: Met, atm: Atm, cache: Cache):
     """First-step module initialization (reference c:7556-7567)."""
     if 1 <= ctl.isosurf <= 4:
-        _unported("module_isosurf_init")
+        cache = m_isosurf.module_isosurf_init(ctl, cache, met01, atm)
     atm = m_advect.module_advect_init(ctl, met01, atm)
     atm = m_chem.module_chem_init(ctl, clim, met01, atm)
     return atm, cache

@@ -12,7 +12,11 @@ reads nothing back from the device (``Met.time``, ``Atm.np`` and
 ``Cache.served_min`` are host values).  What the JAX package's loop does with
 ``lax.scan`` (batching homogeneous steps into one dispatch) has no
 counterpart: ``run(scan=...)`` accepts the argument and steps one by
-one.  Checkpoints are not ported.
+one.  ``checkpoint_file``/``checkpoint_dt`` write full-state checkpoints
+(``checkpoint.py``, the JAX package's file format) and ``resume`` reads
+one; a resumed run skips the first-step initialisation
+(``pipeline.init_modules``), which the run that wrote the checkpoint
+already did, so that it continues bit for bit.
 
 The compute mode is explicit: ``dtype=torch.float64`` (the default and
 the reference-parity mode) or ``torch.float32``, the mode in which
@@ -177,7 +181,8 @@ class Simulation:
     ``METBASE`` names; ``FixedMet(met01)`` runs on a pair held in
     memory.  The device is the particle state's.  ``dtype`` is the
     compute mode (see the module docstring; default: the mode ``atm``
-    is in).
+    is in).  ``checkpoint_file``/``checkpoint_dt`` write a checkpoint
+    after every step whose time is a multiple of ``checkpoint_dt``.
     """
 
     #: re-sort when the served fraction since the last sort dips below
@@ -190,10 +195,6 @@ class Simulation:
                  dirname: str = ".", checkpoint_file: Optional[str] = None,
                  checkpoint_dt: float = 0.0, *, met=None,
                  cache: Optional[Cache] = None, dtype=None):
-        if checkpoint_file is not None:
-            raise NotImplementedError(
-                "checkpoint_file: checkpoint.save_checkpoint / "
-                "load_checkpoint are not ported to mptrac_tpu_torch yet")
         device = atm.time.device
         dtype = atm.lon.dtype if dtype is None else dtype
         if clim is None:
@@ -210,12 +211,30 @@ class Simulation:
         self.met = met if met is not None else MetBuffer(
             self.ctl, self.clim, device=device, dtype=dtype)
         self.dirname = dirname
+        self.dtype = dtype
+        self.checkpoint_file = checkpoint_file
+        self.checkpoint_dt = checkpoint_dt
+        self._resume_t: Optional[float] = None
         self.timers = Timers()
         self.nsorts = 0
         self._first = True
         self._output = None
         self._pack: Optional[MetPack] = None
         self._pack_src: Optional[Met] = None
+
+    def resume(self, path: Optional[str] = None):
+        """Restore the state of a checkpoint (of either package) onto
+        this simulation's device and compute mode, and continue after
+        its time: ``run()`` then steps from the next step time on."""
+        from mptrac_tpu_torch.checkpoint import load_checkpoint
+        atm, cache, t, _ = load_checkpoint(path or self.checkpoint_file,
+                                           device=self.atm.time.device)
+        if atm.lon.dtype != self.dtype:
+            atm, cache = astype_state(atm=atm, cache=cache, dtype=self.dtype)
+        self.atm, self.cache = atm, cache
+        self._resume_t = t
+        self._first = False
+        return self
 
     @property
     def pack(self) -> Optional[MetPack]:
@@ -291,6 +310,10 @@ class Simulation:
         if write_output:
             with self.timers.timer("WRITE_OUTPUT", "OUTPUT"):
                 self.write_output(t)
+        if (self.checkpoint_file and self.checkpoint_dt > 0
+                and math.fmod(t, self.checkpoint_dt) == 0):
+            from mptrac_tpu_torch.checkpoint import save_checkpoint
+            save_checkpoint(self.checkpoint_file, self.atm, self.cache, t)
 
     def close(self):
         """Flush and close output files."""
@@ -301,10 +324,16 @@ class Simulation:
     def run(self, write_output: bool = True, progress: bool = False,
             scan: bool = True, ts: Optional[Iterable[float]] = None):
         """Run the time loop over ``ts`` (default: every step time of
-        the run, and then the timer table is printed at LOGLEV >= 1).
-        ``scan`` is accepted for the JAX package's signature; every step
-        is dispatched on its own."""
-        for t in (self.times() if ts is None else ts):
+        the run after the resumed checkpoint's, if any, and then the timer
+        table is printed at LOGLEV >= 1).  ``scan`` is accepted for the
+        JAX package's signature; every step is dispatched on its own."""
+        if ts is None:
+            ctl, t_res = self.ctl, self._resume_t
+            steps = [t for t in self.times() if t_res is None
+                     or ctl.direction * (t - t_res) > 0]
+        else:
+            steps = ts
+        for t in steps:
             self.advance(t, write_output)
             if progress:
                 print(f"  t={t:.0f}", flush=True)

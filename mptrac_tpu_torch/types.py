@@ -270,8 +270,9 @@ def astype_state(atm: Atm = None, cache: Cache = None, met: Met = None,
 
     In fp32 mode positions, quantities, per-parcel timesteps and met
     grid axes go to float32 while parcel **time stays float64** (jsec
-    magnitudes ~1e9 need it).  Returns the same tuple shape as the
-    non-None inputs."""
+    magnitudes ~1e9 need it), and so does the balloon track of
+    ``ISOSURF 4`` (``iso_ts``, ``iso_ps``), which the JAX package casts.
+    Returns the same tuple shape as the non-None inputs."""
     out = []
     if atm is not None:
         out.append(atm.replace(
@@ -280,8 +281,7 @@ def astype_state(atm: Atm = None, cache: Cache = None, met: Met = None,
             q={k: v.to(dtype) for k, v in atm.q.items()}))
     if cache is not None:
         out.append(cache.replace(
-            dt=cache.dt.to(dtype), iso_var=cache.iso_var.to(dtype),
-            iso_ps=cache.iso_ps.to(dtype), iso_ts=cache.iso_ts.to(dtype)))
+            dt=cache.dt.to(dtype), iso_var=cache.iso_var.to(dtype)))
     if met is not None:
         out.append(met.replace(
             lon=met.lon.to(dtype), lat=met.lat.to(dtype),

@@ -31,7 +31,9 @@ def test_port_imports_no_jax():
                  "utils.timers", "tools._cli", "tools.trac", "perf.probe",
                  "perf.rk_errors", "perf.lane_sigma", "physics.convection",
                  "physics.bound", "physics.mixing", "physics.depo",
-                 "io.writers", "io.obs", "io.kernel"):
+                 "io.writers", "io.obs", "io.kernel", "physics.pbl",
+                 "physics.sedi", "physics.isosurf", "physics.kpp",
+                 "checkpoint"):
         assert "mptrac_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

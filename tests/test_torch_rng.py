@@ -1,6 +1,12 @@
-"""Squares RNG of the port against the JAX package: the integer chain
-bit for bit, the counter advance, and the normals within a few ulp."""
+"""The RNG of the port against the JAX package.  Squares (RNG_TYPE 0
+and 1): the integer chain bit for bit, the counter advance, and the
+normals within a few ulp.  Threefry (RNG_TYPE 2, ``jax.random``): the
+key, the bits and the uniforms bit for bit, the counter advance, and the
+normals, ``sqrt(2) erfinv(u)`` with PyTorch's erfinv where XLA has its
+own polynomial, at rtol 1e-5 (float32) and 1e-12 (float64): measured
+5.2e-6 and 8.2e-15 here, and 5.8e-6 and 9.6e-13 over 2M draws."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,11 +86,77 @@ def test_module_rng3(dtype, monkeypatch):
     np.testing.assert_array_equal(x_c.numpy(), x_t.numpy())
 
 
-def test_rng_type_2_raises():
-    with pytest.raises(NotImplementedError, match="RNG_TYPE 2"):
-        trng.module_rng3(2, 0, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="RNG_TYPE 2"):
-        trng.module_rng(2, 0, 8, 0, device="cpu")
+THREEFRY_CTRS = [0, (1 << 32) + 5, (1 << 64) - 5]
+
+
+@pytest.mark.parametrize("ctr", THREEFRY_CTRS)
+def test_threefry_key_is_jax_fold_in(ctr):
+    """``fold_in(PRNGKey(0), uint32(ctr))``: only the counter's low word
+    enters the key."""
+    from jax._src import prng
+    k = jax.random.fold_in(jax.random.PRNGKey(0),
+                           jnp.uint64(ctr).astype(jnp.uint32))
+    assert tuple(int(x) for x in np.asarray(k)) == trng.threefry_key(ctr)
+    bits = np.asarray(prng.threefry_2x32(np.asarray(k, np.uint32),
+                                         jnp.arange(20, dtype=jnp.uint32)))
+    key = trng.threefry_key(ctr)
+    x = torch.arange(20, dtype=torch.int64)
+    a, b = trng.threefry2x32(key[0], key[1], x[:10], x[10:])
+    np.testing.assert_array_equal(np.concatenate([a, b]),
+                                  bits.astype(np.int64))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ctr", THREEFRY_CTRS)
+@pytest.mark.parametrize("n", [1, 10, 2001])
+def test_threefry_bits_and_uniform_bit_exact(dtype, ctr, n, monkeypatch):
+    """The random bits of a [3, n] draw (32-bit for float32, 64-bit for
+    float64) and ``module_rng`` method 0's uniforms with the counter,
+    bit for bit; and in passes of any size the same stream."""
+    from jax._src import prng
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    width = 32 if dtype == "float32" else 64
+    k = jax.random.fold_in(jax.random.PRNGKey(0),
+                           jnp.uint64(ctr).astype(jnp.uint32))
+    bj = np.asarray(prng.threefry_random_bits(k, width, (3 * n,)))
+    bt = trng.threefry_bits(trng.threefry_key(ctr), 0, 3 * n, width,
+                            "cpu").numpy()
+    np.testing.assert_array_equal(bt, bj.astype(np.int64) if width == 32
+                                  else bj.view(np.int64))
+    x_j, c_j = jrng.module_rng(2, jnp.uint64(ctr), n, 0, dtype=jd)
+    x_t, c_t = trng.module_rng(2, ctr, n, 0, dtype=td, device="cpu")
+    assert x_t.dtype == td and tuple(x_t.shape) == (n,)
+    assert c_t == int(c_j) == (ctr + n + 1) % (1 << 64)
+    np.testing.assert_array_equal(x_t.numpy(), np.asarray(x_j))
+    monkeypatch.setattr(trng, "RNG_CHUNK", 7)
+    x_c, c_c = trng.module_rng(2, ctr, n, 0, dtype=td, device="cpu")
+    assert c_c == c_t
+    np.testing.assert_array_equal(x_c.numpy(), x_t.numpy())
+
+
+#: threefry normals: the uniforms are the same bits; erfinv differs
+THREEFRY_NORMAL_RTOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("ctr", THREEFRY_CTRS)
+@pytest.mark.parametrize("n", [1, 10, 2001])
+def test_threefry_normals(dtype, ctr, n):
+    """``module_rng3`` ([3, n], counter + 3n + 1) and ``module_rng``
+    method 1 (counter + n + 1) with RNG_TYPE 2."""
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    rtol = THREEFRY_NORMAL_RTOL[dtype]
+    x_j, c_j = jrng.module_rng3(2, jnp.uint64(ctr), n, dtype=jd)
+    x_t, c_t = trng.module_rng3(2, ctr, n, dtype=td, device="cpu")
+    assert tuple(x_t.shape) == (3, n) and x_t.dtype == td
+    assert c_t == int(c_j) == (ctr + 3 * n + 1) % (1 << 64)
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=rtol,
+                               atol=0)
+    x_j, c_j = jrng.module_rng(2, jnp.uint64(ctr), n, 1, dtype=jd)
+    x_t, c_t = trng.module_rng(2, ctr, n, 1, dtype=td, device="cpu")
+    assert c_t == int(c_j) == (ctr + n + 1) % (1 << 64)
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=rtol,
+                               atol=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

@@ -289,23 +289,45 @@ def test_module_decay(mid):
     assert float(gt.q["m"].max()) < float(ta.q["m"].max())
 
 
-def test_unported_gate_raises(mid):
+def test_unported_gate_raises(mid, monkeypatch):
     """A gate that would reach a module that is not ported raises,
-    naming it."""
+    naming it: the domain decomposition (queue 1, item 6).  The modules
+    whose gates this test held until they were ported (the PBL scheme,
+    sedimentation, radioactive decay, KPP) run now
+    (tests/test_torch_pbl.py, test_torch_kpp.py hold them).  KPP waits
+    for its interval: with ``do_kpp`` False the step is the step without
+    KPP, bit for bit, as in the JAX step."""
     setup, _, (ta, tc) = mid
-    # (convection, mixing, boundary conditions, the chemistry and the
-    # deposition are ported: tests/test_torch_chem*.py)
-    for kw, match in ((dict(turb_pbl_scheme=1), "module_diff_pbl"),
-                      (dict(qnt_name=("t", "m", "rp", "rhop")),
-                       "module_sedi"),
-                      (dict(radio_decay=1), "module_radio_decay"),
-                      (dict(kpp_chem=1), "module_kpp_chem")):
+    with pytest.raises(NotImplementedError, match="domain decomposition"):
+        tpipe.run_timestep(setup["tctl"].replace(dd=1), setup["tclim"],
+                           setup["tmet"], ta, tc, 720.0, pack=setup["tpack"])
+    for kw in (dict(turb_pbl_scheme=1),
+               dict(qnt_name=("t", "m", "rp", "rhop")),
+               dict(radio_decay=1)):
         ctl = setup["tctl"].replace(**kw)
-        # the KPP gate sits on KPP_CHEM alone, not on its interval
-        flags = tpipe.StepFlags(do_kpp=False)
-        with pytest.raises(NotImplementedError, match=match):
-            tpipe.run_timestep(ctl, setup["tclim"], setup["tmet"], ta, tc,
-                               720.0, flags=flags, pack=setup["tpack"])
+        q = dict(ta.q, rp=torch.ones_like(ta.p),
+                 rhop=torch.full_like(ta.p, 2500.0))
+        got, _ = tpipe.run_timestep(ctl, setup["tclim"], setup["tmet"],
+                                    ta.replace(q=q), tc, 720.0,
+                                    pack=setup["tpack"])
+        assert bool(torch.isfinite(got.p).all()), kw
+    calls = []
+    monkeypatch.setattr(tpipe.m_kpp, "module_kpp_chem",
+                        lambda *a, **k: calls.append(1) or a[-1])
+    without, _ = tpipe.run_timestep(setup["tctl"], setup["tclim"],
+                                    setup["tmet"], ta, tc, 720.0,
+                                    pack=setup["tpack"])
+    ctl = setup["tctl"].replace(kpp_chem=1)
+    skipped, _ = tpipe.run_timestep(
+        ctl, setup["tclim"], setup["tmet"], ta, tc, 720.0,
+        flags=tpipe.StepFlags(do_kpp=False), pack=setup["tpack"])
+    assert not calls
+    assert torch.equal(skipped.p, without.p)
+    assert torch.equal(skipped.q["m"], without.q["m"])
+    tpipe.run_timestep(ctl, setup["tclim"], setup["tmet"], ta, tc, 720.0,
+                       flags=tpipe.StepFlags(do_kpp=True),
+                       pack=setup["tpack"])
+    assert calls == [1]
     # (the zeta/eta and model-level advection are ported:
     # tests/test_torch_zeta.py)
     # a climatological quantity of module_meteo is ported now: without

@@ -332,11 +332,6 @@ def test_cli_usage_and_defaults(tmp_path, capsys):
 @pytest.mark.parametrize("args,match", [
     (("MET_TYPE", "1"), "bin_io"),
     (("ATM_TYPE_OUT", "3"), "write_atm_clams"),
-    (("TURB_PBL_SCHEME", "1"), "module_diff_pbl"),
-    (("QNT_NAME[9]", "rp", "QNT_NAME[10]", "rhop"), "module_sedi"),
-    (("ISOSURF", "1"), "module_isosurf"),
-    (("RADIO_DECAY", "1"), "module_radio_decay"),
-    (("KPP_CHEM", "1"), "module_kpp_chem"),
 ])
 def test_unported_gate_raises_by_name(fcase, args, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -345,24 +340,59 @@ def test_unported_gate_raises_by_name(fcase, args, match):
                           f"{T0 + 240.0:.2f}"), device="cpu")
 
 
+@pytest.fixture
+def one_torch_thread():
+    """A few hundred parcels: more intra-op threads would only spin, on
+    the cores of the other test workers (KPP's loop runs ~1000 small
+    steps a call)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _particles_with(dirname, columns):
+    """Rewrite the case's particle file with the quantity columns
+    ``columns`` (index: value) set."""
+    path = os.path.join(dirname, "atm_in.tab")
+    rows = np.loadtxt(path, ndmin=2)
+    for k, v in columns.items():
+        rows[:, 4 + k] = v
+    np.savetxt(path, rows, fmt="%.10g")
+
+
 @pytest.mark.parametrize("args", [
     ("OH_CHEM_REACTION", "2"),
     ("MIXING_TROP", "1e-3", "MIXING_STRAT", "1e-6"),
     ("DRY_DEPO_VDEP", "0.15"),
     ("BOUND_P0", "1e10", "BOUND_P1", "-1e10", "BOUND_LAT0", "-90",
      "BOUND_LAT1", "90"),
-], ids=["chem_grid", "mixing", "dry_depo", "bound_cond"])
-def test_ported_module_runs_and_agrees_with_jax(tmp_path, args):
+    ("TURB_PBL_SCHEME", "1"),
+    ("QNT_NAME[9]", "rp", "QNT_NAME[10]", "rhop"),
+    ("ISOSURF", "1"),
+    ("RADIO_DECAY", "1"),
+    ("KPP_CHEM", "1"),
+    ("RNG_TYPE", "2"),
+], ids=["chem_grid", "mixing", "dry_depo", "bound_cond", "pbl", "sedi",
+        "isosurf", "radio_decay", "kpp", "rng_type_2"])
+def test_ported_module_runs_and_agrees_with_jax(tmp_path, args,
+                                                one_torch_thread):
     """Control parameters that reach the chemistry grid and the OH
-    chemistry, the mixing, the dry deposition and the boundary
-    conditions: ``run_trac`` runs to the end in both packages (float64,
-    the case of ``make_case``, three steps) and the final states agree
-    at the tolerances of test_run_trac_states_agree_with_jax.  (These
-    were the cases of test_unported_gate_raises_by_name while the modules
-    raised; tests/test_torch_chem.py holds each module's effect.)"""
+    chemistry, the mixing, the dry deposition, the boundary conditions,
+    the PBL scheme, sedimentation (of 1 um particles of 2500 kg/m^3), the
+    isosurface, radioactive decay, KPP chemistry and the threefry
+    generator: ``run_trac`` runs to the end in both packages (float64, the
+    case of ``make_case``, three steps) and the final states agree at the
+    tolerances of test_run_trac_states_agree_with_jax.  (These were the
+    cases of test_unported_gate_raises_by_name while the modules raised;
+    tests/test_torch_chem.py, test_torch_pbl.py, test_torch_kpp.py and
+    test_torch_rng.py hold each module's effect.)"""
     run = args + ("ATM_BASENAME", "-", "T_STOP", f"{T0 + 240.0:.2f}")
     jdir = make_case(tmp_path / "jax")
     tdir = make_case(tmp_path / "torch")
+    if "rp" in args:
+        for d in (jdir, tdir):
+            _particles_with(d, {9: 1.0, 10: 2500.0})
     ja = jrun_trac(jdir, "trac.ctl", "atm_in.tab", list(run)).atm
     tsim = trun_trac(tdir, "trac.ctl", "atm_in.tab", run, device="cpu")
     ta = tsim.atm
@@ -374,9 +404,11 @@ def test_ported_module_runs_and_agrees_with_jax(tmp_path, args):
                                    atol=ATOL_DEG[True], err_msg=name)
     np.testing.assert_allclose(ta.p.numpy(), np.asarray(ja.p), rtol=1e-6,
                                atol=0)
-    for q in QNT:
+    assert set(ta.q) == set(ja.q) and len(ta.q) == len(QNT)
+    for q in ta.q:
         np.testing.assert_allclose(ta.q[q].numpy(), np.asarray(ja.q[q]),
                                    rtol=1e-5, atol=1e-12, err_msg=q)
+    assert bool(torch.isfinite(ta.p).all())
 
 
 def _obs_file(path, rng, n=240):
@@ -455,13 +487,35 @@ def test_writer_runs_and_agrees_with_jax(writer_runs, base):
         assert int((tsim.atm.q["stat"] == 1).sum()) == rows
 
 
-def test_checkpoint_raises_by_name(fcase):
-    ctl = read_ctl(os.path.join(fcase, "trac.ctl"))
-    atm = atm_io.read_atm(os.path.join(fcase, "atm_in.tab"), ctl,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Simulation(ctl, atm, dirname=fcase,
-                   checkpoint_file=os.path.join(fcase, "ckpt.npz"))
+def test_checkpoint_writes_and_resumes(fcase, tmp_path, one_torch_thread):
+    """``checkpoint_file`` (the gate of test_checkpoint_raises_by_name
+    while checkpoints were not ported): on the case's files a run to
+    240 s writes its checkpoint, and a fresh Simulation resumed from it
+    ends where the uninterrupted run to 600 s ends, bit for bit, across
+    the met file's parcels and the sort of neither (float64)."""
+    ck = str(tmp_path / "ckpt.npz")
+    args = ("ATM_BASENAME", "-")
+
+    def sim(t_stop, **kw):
+        ctl = read_ctl(os.path.join(fcase, "trac.ctl"),
+                       args + ("T_STOP", f"{T0 + t_stop:.2f}"))
+        atm = atm_io.read_atm(os.path.join(fcase, "atm_in.tab"), ctl,
+                              device="cpu")
+        return Simulation(ctl, atm, dirname=fcase, **kw)
+
+    full = sim(600.0)
+    full.run()
+    sim(240.0, checkpoint_file=ck, checkpoint_dt=120.0).run()
+    resumed = sim(600.0).resume(ck)
+    resumed.run()
+    assert resumed.timers.as_dict()["RUN_TIMESTEP"]["count"] == 3
+    for name in ("time", "lon", "lat", "p"):
+        assert torch.equal(getattr(resumed.atm, name),
+                           getattr(full.atm, name)), name
+    for name in full.atm.q:
+        assert torch.equal(resumed.atm.q[name], full.atm.q[name]), name
+    assert torch.equal(resumed.cache.uvwp, full.cache.uvwp)
+    assert resumed.cache.rng_ctr == full.cache.rng_ctr
 
 
 def test_scan_argument_is_accepted(fcase):
