@@ -108,7 +108,32 @@ non-zero code and prints no result.  Phases, each of which must pass:
 22. card against CPU of the new modules (``phase_slice_vs_cpu``): the
     PBL scheme, each isosurface mode (4 with a balloon file), KPP and
     all modules at once, fused float32 and exact float64, and the
-    threefry bits of both devices.
+    threefry bits of both devices;
+23. bin path: trac path's case (its directory is kept for 23-25) read
+    from MET_TYPE 1 files that the port's ``write_met_bin`` converted
+    from its netCDF files, the second and third through the native
+    decode-ahead, counted as the main path: ms a step, the step at the
+    swap beside trac path's, each file's seconds by stage, route and
+    wait, peak memory, the launches; the particle file held to trac
+    path's byte for byte;
+24. codec path: one full-size file of each other container (2, 2 with
+    MET_PCK_ZSTD, 3, 4, 5, 7, 8): ratio and bits per value, the write
+    and read seconds by stage, the card's read against the CPU's in ulps
+    on every field, the error against the MET_TYPE 1 fields within each
+    codec's guarantee;
+25. capi: the port's C shim and ``demo_trac`` built and run on the card
+    at ``CAPI_N`` parcels, its particle file held to ``run_trac``'s;
+26. grib path: a GRIB2 set at 360x181x61 through ``read_met`` on the
+    card and on the CPU, every field held equal;
+27. clams atm: CLaMS particle files (types 3 and 4) of N parcels written
+    and read back equal (CDF-2), seconds and bytes;
+28. formats against CPU: each new reader at the tests' size, card
+    against CPU, and ``run_trac`` from MET_TYPE 1 files.
+
+Every phase prints its seconds (``[phase]`` lines, ``phase_seconds``).
+The environment phase also names the libzstd that ``met/zstd`` binds and
+the host compilers (``g++``, ``gcc``) that the met loader and the C API
+are built with, and fails by name where one is missing.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -229,6 +254,13 @@ def phase_environment(torch):
         f"{' '.join(x.strip() for x in nvcc)}")
     if not smi:
         raise RuntimeError("nvidia-smi gave no name,power.limit line")
+    from mptrac_tpu_torch.met import zstd
+    for tool in ("g++", "gcc"):
+        if shutil.which(tool) is None:
+            raise RuntimeError(f"{tool} is missing: the met readers' host "
+                               "library and the C API cannot be built")
+    say(f"[env] libzstd {zstd.version()} (met/zstd), "
+        f"{run_text(['g++', '--version']).splitlines()[0]}")
     say(smi)
     return smi.splitlines()[0]
 
@@ -1633,19 +1665,77 @@ def disk_cut(tmp, n, per_parcel, tag):
                    else "")
 
 
-def phase_trac_path(torch, n):
-    """``tools.trac`` from files on the card at full size, float32 state,
-    the fused path, across one met swap."""
-    import numpy as np
-
-    from mptrac_tpu_torch import flagship
+def run_trac_tool(torch, argv, tag):
+    """``tools.trac`` on ``argv``, with CUDA events around every step of
+    the loop and every table build (measurement only: the run itself is
+    the tool's).  Peak memory and the launch counts are reset just before
+    and read just after.  Returns (sim, steps, builds, counts, peak,
+    run_s); each step a dict of its ``ms`` and of how many met files were
+    read, sorts run, and whether it wrote the output."""
     from mptrac_tpu_torch import sim as simmod
-    from mptrac_tpu_torch.config import read_ctl
-    from mptrac_tpu_torch.io import atm_io
     from mptrac_tpu_torch.ops import _cuda
     from mptrac_tpu_torch.tools import trac
 
+    steps, builds, holder = [], [], {}
+    advance, build_pack = simmod.Simulation.advance, simmod.build_pack
+
+    def timed_advance(self, t, write_output=True):
+        holder["sim"] = self
+        reads = len(self.met.reads)
+        sorts = self.nsorts
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        advance(self, t, write_output)
+        e1.record()
+        steps.append(dict(t=t, e0=e0, e1=e1,
+                          met_files=len(self.met.reads) - reads,
+                          sorted=self.nsorts - sorts,
+                          output=t == self.ctl.t_stop))
+
+    def timed_build_pack(ctl, met01):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = build_pack(ctl, met01)
+        e1.record()
+        builds.append((e0, e1))
+        return out
+
+    simmod.Simulation.advance = timed_advance
+    simmod.build_pack = timed_build_pack
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()              # the path starts here
+    t0 = time.time()
+    try:
+        rc = trac.main(argv)
+    finally:
+        simmod.Simulation.advance = advance
+        simmod.build_pack = build_pack
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    counts = dict(_cuda.launch_counts)       # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise RuntimeError(f"{tag}: tools.trac returned {rc}")
+    for st in steps:
+        st["ms"] = st.pop("e0").elapsed_time(st.pop("e1"))
+    return holder["sim"], steps, builds, counts, peak, run_s
+
+
+def phase_trac_path(torch, n):
+    """``tools.trac`` from files on the card at full size, float32 state,
+    the fused path, across one met swap.  The case's directory is kept for
+    the phases that run on its files (``tmp`` of the summary returned);
+    the caller removes it."""
+    import numpy as np
+
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.io import atm_io
+
     tmp = tempfile.mkdtemp(prefix="mptrac_trac_")
+    kept = False
     try:
         # the particle file in and out (6 float64 columns each) and the
         # met files must fit the temporary space
@@ -1661,61 +1751,15 @@ def phase_trac_path(torch, n):
             f"{setup_s:.1f} s: " + ", ".join(
                 f"{k} {v / 1e6:.1f} MB" for k, v in sizes.items()))
 
-        # measurement only: CUDA events around every step of the loop and
-        # every table build; the run itself is the tool's
-        steps, builds, holder = [], [], {}
-        advance, build_pack = simmod.Simulation.advance, simmod.build_pack
-
-        def timed_advance(self, t, write_output=True):
-            holder["sim"] = self
-            reads = len(self.met.reads)
-            sorts = self.nsorts
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            advance(self, t, write_output)
-            e1.record()
-            steps.append(dict(t=t, e0=e0, e1=e1,
-                              met_files=len(self.met.reads) - reads,
-                              sorted=self.nsorts - sorts,
-                              output=t == self.ctl.t_stop))
-
-        def timed_build_pack(ctl, met01):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = build_pack(ctl, met01)
-            e1.record()
-            builds.append((e0, e1))
-            return out
-
-        simmod.Simulation.advance = timed_advance
-        simmod.build_pack = timed_build_pack
-        torch.cuda.reset_peak_memory_stats()
-        _cuda.reset_launch_counts()              # the path starts here
-        t0 = time.time()
-        try:
-            rc = trac.main(["trac", dirlist, "trac.ctl", "atm_in.bin",
-                            "--device", "cuda", "--dtype", "float32"])
-        finally:
-            simmod.Simulation.advance = advance
-            simmod.build_pack = build_pack
-        torch.cuda.synchronize()
-        run_s = time.time() - t0
-        counts = dict(_cuda.launch_counts)       # ... and ends here
-        peak = torch.cuda.max_memory_allocated()
-        if rc != 0:
-            raise RuntimeError(f"trac path: tools.trac returned {rc}")
-
-        sim = holder["sim"]
+        sim, steps, builds, counts, peak, run_s = run_trac_tool(
+            torch, ["trac", dirlist, "trac.ctl", "atm_in.bin", "--device",
+                    "cuda", "--dtype", "float32"], "trac path")
         ctl = sim.ctl
         nadv = len(steps)
         want_adv = int(round((T_TRAC_STOP - T_TRAC_START) / ctl.dt_mod)) + 1
         if nadv != want_adv:
             raise RuntimeError(f"trac path: {nadv} steps, expected "
                                f"{want_adv}")
-        for st in steps:
-            st["ms"] = st.pop("e0").elapsed_time(st.pop("e1"))
         swap = [st for st in steps[1:] if st["met_files"]]
         if (len(sim.met.reads) != 3 or len(swap) != 1
                 or tuple(sim.met.pair.time) != (DT_MET, 2 * DT_MET)):
@@ -1799,11 +1843,14 @@ def phase_trac_path(torch, n):
             "resorts": sim.nsorts,
             "peak_memory_allocated_bytes": peak, "launches": counts,
             "mass_rel_err": m_err, "timers": timers}}))
+        kept = True
         return {"ms_per_step": float(np.mean(plain)),
                 "ms_per_step_min_max": [min(plain), max(plain)],
-                "peak": peak}
+                "peak": peak, "ms_step_at_swap": swap[0]["ms"], "tmp": tmp,
+                "n_parcels": n_run, "dirlist": dirlist, "output": outs[0]}
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_trac_vs_cpu(torch):
@@ -1860,6 +1907,501 @@ def phase_trac_vs_cpu(torch):
             shutil.rmtree(tmp, ignore_errors=True)
     say(json.dumps({"trac_vs_cpu": {"steps": 10, "n_parcels": 2048,
                                     "grid": [36, 19, 8], "modes": report}}))
+
+
+# ------------------------------------------- met and particle formats
+
+#: parcels of the C API phase (a run through the embedded interpreter)
+CAPI_N = 1 << 20
+#: the containers of codec_path besides MET_TYPE 1: (MET_TYPE, extra
+#: control parameters)
+CODECS = ((2, ()), (2, ("MET_PCK_ZSTD", "1")), (3, ()), (4, ()), (5, ()),
+          (7, ()), (8, ()))
+
+
+def codec_tag(met_type, extra):
+    return f"type{met_type}" + ("_zstd" if extra else "")
+
+
+def same_file(a, b, chunk=1 << 26):
+    """Whether two files hold the same bytes (read in chunks)."""
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(chunk), fb.read(chunk)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def column_diffs(a, b):
+    """Largest |a - b| of each column of two particle states."""
+    out = {k: float((getattr(a, k) - getattr(b, k)).abs().max())
+           for k in ("time", "p", "lon", "lat")}
+    out.update({"q." + k: float((a.q[k] - b.q[k]).abs().max()) for k in a.q})
+    return out
+
+
+def max_ulps(torch, a, b):
+    """Largest distance in units of the last place between two float32
+    tensors of one shape (0 where both are NaN; inf where one is)."""
+    a, b = a.contiguous(), b.to(a.device).contiguous()
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(nan_a, nan_b):
+        return float("inf")
+    ia = a.view(torch.int32).to(torch.int64)
+    ib = b.view(torch.int32).to(torch.int64)
+    # the integers of IEEE floats ordered like the floats
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    d = torch.where(nan_a, torch.zeros_like(ia), (ia - ib).abs())
+    return int(d.max()) if d.numel() else 0
+
+
+def fields_ulps(torch, ra, rb):
+    """{field: max_ulps} over every 2-D and 3-D field of two raw dicts or
+    Mets (card against CPU)."""
+    def get(r, kind):
+        return r[kind] if isinstance(r, dict) else getattr(r, kind)
+    out = {}
+    for kind in ("fields2d", "fields3d"):
+        fa, fb = get(ra, kind), get(rb, kind)
+        if sorted(fa) != sorted(fb):
+            raise RuntimeError(f"fields differ: {sorted(fa)} {sorted(fb)}")
+        for k in fa:
+            out[k] = max_ulps(torch, fa[k], fb[k])
+    return out
+
+
+def phase_bin_path(torch, trac):
+    """``tools.trac`` on trac_path's case (its directory, its particle
+    file of N parcels, 16 steps across the met swap and two sorts, the
+    fused path, float32) from MET_TYPE 1 files that the port's
+    ``write_met_bin`` converted from the case's three netCDF files, the
+    second and third read by the native decode-ahead: ms a step, the
+    step at the swap beside trac_path's, each file's seconds by stage,
+    route and wait, peak memory, the launches; the final particle file
+    held to trac_path's byte for byte."""
+    import numpy as np
+
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.io import atm_io
+
+    tmp = trac["tmp"]
+    t0 = time.time()
+    paths = flagship.convert_case(tmp, 1, workers=3)
+    convert_s = time.time() - t0
+    sizes = [os.path.getsize(p) for p in paths]
+    say(f"[bin] the case's netCDF met files converted to MET_TYPE 1 in "
+        f"{convert_s:.1f} s (3 processes): {sizes} B")
+    sim, steps, builds, counts, peak, run_s = run_trac_tool(
+        torch, ["trac", trac["dirlist"], "trac.ctl", "atm_in.bin",
+                "ATM_BASENAME", "bin", "--device", "cuda", "--dtype",
+                "float32"], "bin path")
+    nadv = len(steps)
+    swap = [st for st in steps[1:] if st["met_files"]]
+    routes = [r["route"] for r in sim.met.reads]
+    if (routes != ["python", "native", "native"] or len(swap) != 1
+            or tuple(sim.met.pair.time) != (DT_MET, 2 * DT_MET)):
+        raise RuntimeError(f"bin path: files {sim.met.reads}, pair "
+                           f"{sim.met.pair.time}, {len(swap)} swaps")
+    if sim.nsorts != 2 or counts["permute_count"] != 2 or (
+            counts["permute_gather"] + counts["permute_rows"] != 2):
+        raise RuntimeError(f"bin path: {sim.nsorts} sorts, K3 {counts}")
+    if counts["rk_fused_advect"] != nadv or counts["sfc_interp"] < nadv:
+        raise RuntimeError(f"bin path: K1 {counts['rk_fused_advect']}, K2 "
+                           f"{counts['sfc_interp']} launches in {nadv} steps")
+    plain = [st["ms"] for st in steps[1:]
+             if not (st["met_files"] or st["sorted"] or st["output"])]
+    reads = sim.met.reads
+    del sim
+    torch.cuda.empty_cache()
+    ours = os.path.join(tmp, "bin" + trac["output"][len("atm"):])
+    ref = os.path.join(tmp, trac["output"])
+    t0 = time.time()
+    equal = same_file(ours, ref)
+    diffs = None
+    if not equal:
+        ctl = read_ctl(os.path.join(tmp, "trac.ctl"))
+        diffs = column_diffs(atm_io.read_atm(ours, ctl, device="cpu"),
+                             atm_io.read_atm(ref, ctl, device="cpu"))
+    compare_s = time.time() - t0
+    summary = {
+        "n_parcels": trac["n_parcels"], "grid": list(GRID), "steps": nadv,
+        "met_type": 1, "convert_s": convert_s, "met_file_bytes": sizes,
+        "run_s": run_s, "ms_per_step": float(np.mean(plain)),
+        "ms_per_step_min_max": [min(plain), max(plain)],
+        "ms_step_at_swap": swap[0]["ms"],
+        "trac_path_ms_per_step": trac["ms_per_step"],
+        "trac_path_ms_step_at_swap": trac["ms_step_at_swap"],
+        "ms_first_step": steps[0]["ms"],
+        "ms_steps": [round(st["ms"], 3) for st in steps],
+        "pack_rebuild_ms": [a.elapsed_time(b) for a, b in builds],
+        "met_files": reads,
+        "peak_memory_allocated_bytes": peak,
+        "trac_path_peak_memory_allocated_bytes": trac["peak"],
+        "launches": counts, "particle_file_equal_to_trac_path": equal,
+        "column_max_abs_diff": diffs, "compare_s": compare_s}
+    say(json.dumps({"bin_path": summary}))
+    if not equal:
+        raise RuntimeError("bin path: the particle file differs from "
+                           f"trac_path's: {diffs}")
+    os.remove(ours)
+    return summary
+
+
+def phase_codec_path(torch, trac):
+    """One full-size file of each other container (2, 2 with
+    MET_PCK_ZSTD, 3, 4, 5, 7, 8), written by the port's ``write_met_bin``
+    from the fields of bin_path's second MET_TYPE 1 file: each file's
+    ratio and bits per value (the JAX ``_log_codec``'s), the write and the
+    read seconds by stage, the card's read against the CPU's on every
+    field (in ulps), and the error against the MET_TYPE 1 fields within
+    each codec's guarantee: PCK half its step a level, SQZ half its step
+    (each plus one float32 ulp of the level's largest magnitude); ZFP's
+    and CMS's errors printed."""
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.met import bin_io
+    from mptrac_tpu_torch.met.build import read_met
+
+    tmp = trac["tmp"]
+    ctl_file = os.path.join(tmp, "trac.ctl")
+    src = os.path.join(tmp, "met_2000_01_01_01.bin")
+    ctl1 = read_ctl(ctl_file, ["MET_TYPE", "1"])
+    met = read_met(src, ctl1, device="cpu")
+    ref = {k: v.to("cuda") for k, v in met.fields3d.items()}
+    report = {}
+    for met_type, extra in CODECS:
+        tag = codec_tag(met_type, extra)
+        ctl = read_ctl(ctl_file, ["MET_TYPE", str(met_type), *extra])
+        fn = os.path.join(tmp, f"codec_{tag}.bin")
+        stats = []
+        t0 = time.time()
+        bin_io.write_met_bin(fn, met, met_type, pck_zstd=bool(
+            ctl.met_pck_zstd), ctl=ctl, stats=stats)
+        write_s = time.time() - t0
+        values = sum(st[2] for st in stats)
+        stored = sum(st[3] for st in stats)
+        card_t, cpu_t = {}, {}
+        t0 = time.time()
+        card = bin_io.read_met_bin(fn, ctl, device="cuda", timings=card_t)
+        card_s = time.time() - t0
+        t0 = time.time()
+        cpu = bin_io.read_met_bin(fn, ctl, device="cpu", timings=cpu_t)
+        cpu_s = time.time() - t0
+        ulps = fields_ulps(torch, card, cpu)
+        worst = max(ulps.values())
+        errs, within = {}, True
+        for mv, (name, _, _) in enumerate(bin_io.BIN_3D):
+            got = card["fields3d"][name].double().reshape(-1, met.npl)
+            want = ref[name].double().reshape(-1, met.npl)
+            err = (got - want).abs().max(dim=0).values
+            errs[name] = float(err.max())
+            rng = want.max(dim=0).values - want.min(dim=0).values
+            ulp = want.abs().max(dim=0).values * 2.0 ** -23
+            if met_type == 2:
+                within &= bool((err <= rng / 65533.0 / 2 + ulp).all())
+            elif met_type == 7:
+                step = torch.clamp(rng, min=1e-30) * 0.5 ** ctl.met_sz3_prec[mv]
+                within &= bool((err <= step / 2 + ulp).all())
+            elif met_type in (4, 8):
+                within &= errs[name] == 0.0
+        for k in met.fields2d:
+            if not torch.equal(card["fields2d"][k].cpu().nan_to_num(-999.0),
+                               met.fields2d[k].nan_to_num(-999.0)):
+                within = False
+        report[tag] = {
+            "bytes": os.path.getsize(fn), "ratio": 4 * values / stored,
+            "bpv": 8 * stored / values, "write_s": write_s,
+            "read_card_s": card_s, "read_card_stages_s": card_t,
+            "read_cpu_s": cpu_s, "read_cpu_stages_s": cpu_t,
+            "card_vs_cpu_max_ulps": worst, "max_abs_err_vs_type1": errs,
+            "within_guarantee": within}
+        say(f"[codec] {tag}: RATIO={4 * values / stored:g} "
+            f"BPV={8 * stored / values:g}, write {write_s:.2f} s, read "
+            f"card {card_s:.3f} s {json.dumps(card_t)}, cpu {cpu_s:.3f} s, "
+            f"card vs cpu {worst} ulp, max err {max(errs.values()):.3e}")
+        os.remove(fn)
+        del card, cpu
+        if worst != 0:
+            raise RuntimeError(f"codec path: {tag} read on the card differs "
+                               f"from the CPU's by up to {worst} ulp: {ulps}")
+        if not within:
+            raise RuntimeError(f"codec path: {tag} outside its guarantee: "
+                               f"{errs}")
+    say(json.dumps({"codec_path": {"grid": list(GRID), "containers": report}}))
+
+
+def phase_capi(torch, trac):
+    """The port's C shim and ``demo_trac`` built (``capi.build_shim``)
+    and the demo run on the card (``--device cuda --dtype float32``) on
+    trac_path's case, from its MET_TYPE 1 files, at CAPI_N parcels; its
+    final particle file held to ``run_trac``'s on the same case, byte for
+    byte."""
+    import numpy as np
+
+    from mptrac_tpu_torch import capi
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.io import atm_io
+    from mptrac_tpu_torch.sim import run_trac
+    from mptrac_tpu_torch.types import Atm
+
+    tmp = trac["tmp"]
+    t0 = time.time()
+    paths = capi.build_shim()
+    build_s = time.time() - t0
+    ctl = read_ctl(os.path.join(tmp, "trac.ctl"))
+    rng = np.random.default_rng(1)
+    n = CAPI_N
+
+    def col(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, n))
+    atm = Atm(time=torch.full((n,), T_TRAC_START, dtype=torch.float64),
+              p=col(200, 900), lon=col(-180, 180), lat=col(-60, 60),
+              q={"t": torch.zeros(n, dtype=torch.float64),
+                 "m": torch.ones(n, dtype=torch.float64)}, np=n)
+    atm_io.write_atm(os.path.join(tmp, "atm_capi.bin"), ctl, atm,
+                     T_TRAC_START)
+    t0 = time.time()
+    r = subprocess.run(
+        [paths["demo"], tmp, "trac.ctl", "atm_capi.bin", "ATM_BASENAME",
+         "capi", "--device", "cuda", "--dtype", "float32"],
+        env=capi.demo_env({"LOGLEV": "0"}), capture_output=True, text=True,
+        timeout=600)
+    demo_s = time.time() - t0
+    nsteps = int(round((T_TRAC_STOP - T_TRAC_START) / ctl.dt_mod)) + 1
+    if r.returncode != 0 or f"done: {nsteps} steps, {n} parcels" not in r.stdout:
+        raise RuntimeError(f"capi: demo_trac returned {r.returncode}:\n"
+                           f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    t0 = time.time()
+    sim = run_trac(tmp, "trac.ctl", "atm_capi.bin", ("ATM_BASENAME", "pyc"),
+                   device="cuda", dtype=torch.float32)
+    run_s = time.time() - t0
+    routes = [x["route"] for x in sim.met.reads]
+    del sim
+    stamp = trac["output"][len("atm"):]
+    equal = same_file(os.path.join(tmp, "capi" + stamp),
+                      os.path.join(tmp, "pyc" + stamp))
+    say(json.dumps({"capi": {
+        "n_parcels": n, "steps": nsteps, "met_type": ctl.met_type,
+        "build_s": build_s, "shim": paths["lib"], "demo_s": demo_s,
+        "run_trac_s": run_s, "run_trac_routes": routes,
+        "demo_stdout": r.stdout.strip().splitlines()[:3],
+        "particle_file_equal_to_run_trac": equal}}))
+    if not equal:
+        raise RuntimeError("capi: demo_trac's particle file differs from "
+                           "run_trac's")
+
+
+def grib_levels():
+    """61 isobaric levels [hPa], whole hPa (GRIB's levels are integers),
+    geometric from 1000 to 10 hPa."""
+    import numpy as np
+    levels = np.unique(np.round(np.geomspace(1000.0, 10.0, GRID[2])))[::-1]
+    assert len(levels) == GRID[2]
+    return levels
+
+
+def phase_grib_path(torch):
+    """A GRIB2 set of the flagship's wind at 360x181 on 61 isobaric
+    levels (``_ml`` and ``_sf`` files, the port's
+    ``grib2.encode_message``): ``read_met`` on the card and on the CPU,
+    the seconds by stage (the decode of the GRIB messages is in
+    ``read``), every field of the two ``Met`` held equal."""
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.met.build import read_met
+    from mptrac_tpu_torch.met.synthetic import make_wind_met
+
+    tmp = tempfile.mkdtemp(prefix="mptrac_grib_")
+    try:
+        met = make_wind_met(t0=0.0, nx=GRID[0], ny=GRID[1], nz=GRID[2],
+                            alpha=30.0, q=5e-6, o3=2e-6, device="cpu")
+        path = os.path.join(tmp, "gb_XX_2000_01_01_00.grb")
+        t0 = time.time()
+        flagship.write_grib_met(path, met, grib_levels())
+        write_s = time.time() - t0
+        sizes = {x: os.path.getsize(path.replace("XX", x))
+                 for x in ("ml", "sf")}
+        ctl = read_ctl(None, ["MET_TYPE", "6", "METBASE",
+                              os.path.join(tmp, "gb_XX"), "MET_TROPO", "3"])
+        card_t, cpu_t = {}, {}
+        t0 = time.time()
+        card = read_met(path, ctl, device="cuda", timings=card_t)
+        card_s = time.time() - t0
+        t0 = time.time()
+        cpu = read_met(path, ctl, device="cpu", timings=cpu_t)
+        cpu_s = time.time() - t0
+        ulps = fields_ulps(torch, card, cpu)
+        axes = all(torch.equal(getattr(card, k).cpu(), getattr(cpu, k))
+                   for k in ("lon", "lat", "p"))
+        say(json.dumps({"grib_path": {
+            "grid": [card.nx, card.ny, card.npl], "bytes": sizes,
+            "messages": 6 * GRID[2] + 4, "write_s": write_s,
+            "read_met_card_s": card_s, "card_stages_s": card_t,
+            "read_met_cpu_s": cpu_s, "cpu_stages_s": cpu_t,
+            "card_vs_cpu_max_ulps": max(ulps.values()), "axes_equal": axes}}))
+        if max(ulps.values()) != 0 or not axes or card.npl != GRID[2]:
+            raise RuntimeError(f"grib path: card and CPU differ: {ulps}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_clams_atm(torch, n):
+    """CLaMS particle files (``ATM_TYPE_OUT`` / ``ATM_TYPE`` 3 and 4) of a
+    float32 state of N parcels on the card: the 64-bit-offset format (the
+    classic one cannot hold the file, where the JAX writer fails), the
+    write and read seconds and bytes, the file read back equal to the
+    state."""
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.io import atm_io
+    from mptrac_tpu_torch.types import Atm
+
+    tmp = tempfile.mkdtemp(prefix="mptrac_clams_")
+    try:
+        # 7 float64 columns (LAT, LON, PRESS, ZETA, t, m and the header)
+        n_run, cut = disk_cut(tmp, n, 8 * 8, "clams atm")
+        g = torch.Generator("cuda").manual_seed(3)
+
+        def col(lo, hi):
+            return torch.rand(n_run, generator=g, device="cuda") * (
+                hi - lo) + lo
+        atm = Atm(time=torch.full((n_run,), 3600.0, dtype=torch.float64,
+                                  device="cuda"),
+                  p=col(200, 900), lon=col(-180, 180), lat=col(-60, 60),
+                  q={"t": col(200, 300), "m": col(0, 1)}, np=n_run)
+        report = {}
+        for k in (3, 4):
+            ctl = read_ctl(None, ["NQ", "2", "QNT_NAME[0]", "t", "QNT_NAME[1]",
+                                  "m", "ATM_TYPE", str(k), "ATM_TYPE_OUT",
+                                  str(k), "METBASE", "-"])
+            version = atm_io.clams_version(n_run, ctl)
+            fn = os.path.join(tmp, f"atm_clams{k}.nc")
+            t0 = time.time()
+            atm_io.write_atm(fn, ctl, atm, 3600.0)
+            write_s = time.time() - t0
+            with open(fn, "rb") as f:
+                magic = f.read(4)
+            t0 = time.time()
+            back = atm_io.read_atm(fn, ctl, dtype=torch.float32,
+                                   device="cuda")
+            torch.cuda.synchronize()
+            read_s = time.time() - t0
+            equal = back.np == n_run and all(
+                torch.equal(getattr(back, c), getattr(atm, c))
+                for c in ("time", "p", "lon", "lat")) and all(
+                torch.equal(back.q[q], atm.q[q]) for q in ("t", "m"))
+            report[f"type{k}"] = {
+                "version": version, "magic": magic.decode("latin-1"),
+                "bytes": os.path.getsize(fn), "write_s": write_s,
+                "read_s": read_s, "equal_to_state": equal}
+            os.remove(fn)
+            del back
+            if not equal or magic != b"CDF" + bytes([version]):
+                raise RuntimeError(f"clams atm: type {k}: {report}")
+        begins = atm_io.clams_begins(n_run, ctl)
+        say(json.dumps({"clams_atm": {
+            "n_parcels": n_run, "n_parcels_asked": n, "cut": cut,
+            "zeta_begin_bytes": begins["ZETA"],
+            "cdf1_max_begin_bytes": atm_io.CDF1_MAX_BEGIN, "files": report}}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_formats_vs_cpu(torch):
+    """At the tests' size (36x19x8), each new reader on the card against
+    the CPU: every binary container, the GRIB set, the CLaMS particle
+    files (equal to the bit), and ``run_trac`` from MET_TYPE 1 files (the
+    decode-ahead on both devices) at the card-against-CPU tolerances."""
+    import numpy as np
+
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.io import atm_io
+    from mptrac_tpu_torch.met import bin_io
+    from mptrac_tpu_torch.met.build import read_met
+    from mptrac_tpu_torch.met.synthetic import make_wind_met
+    from mptrac_tpu_torch.sim import run_trac
+    from mptrac_tpu_torch.types import Atm
+
+    tmp = tempfile.mkdtemp(prefix="mptrac_fmt_")
+    report = {}
+    try:
+        met = make_wind_met(t0=3600.0, nx=36, ny=19, nz=8, alpha=30.0,
+                            q=1e-5, o3=1e-6, device="cpu")
+        rng = np.random.default_rng(1)
+        met = met.replace(fields3d={
+            k: v + torch.from_numpy(rng.normal(0, 1, v.shape).astype(
+                np.float32)) for k, v in met.fields3d.items()})
+        for met_type, extra in ((1, ()),) + CODECS:
+            tag = codec_tag(met_type, extra)
+            ctl = read_ctl(None, ["MET_TYPE", str(met_type), "METBASE", "-",
+                                  *extra])
+            fn = os.path.join(tmp, tag + ".bin")
+            bin_io.write_met_bin(fn, met, met_type,
+                                 pck_zstd=bool(ctl.met_pck_zstd), ctl=ctl)
+            report[tag] = max(fields_ulps(
+                torch, bin_io.read_met_bin(fn, ctl, device="cuda"),
+                bin_io.read_met_bin(fn, ctl, device="cpu")).values())
+        path = os.path.join(tmp, "gb_XX_2000_01_01_00.grb")
+        flagship.write_grib_met(path, met, (1000, 850, 700, 500, 300, 200,
+                                            100, 50))
+        ctl = read_ctl(None, ["MET_TYPE", "6", "METBASE", "-",
+                              "MET_TROPO", "3"])
+        report["grib"] = max(fields_ulps(
+            torch, read_met(path, ctl, device="cuda"),
+            read_met(path, ctl, device="cpu")).values())
+        for k in (3, 4):
+            ctl = read_ctl(None, ["NQ", "1", "QNT_NAME[0]", "m", "ATM_TYPE",
+                                  str(k), "ATM_TYPE_OUT", str(k),
+                                  "METBASE", "-"])
+            n = 2048
+            atm = Atm(
+                time=torch.full((n,), 60.0, dtype=torch.float64),
+                p=torch.from_numpy(rng.uniform(100, 900, n)),
+                lon=torch.from_numpy(rng.uniform(-180, 180, n)),
+                lat=torch.from_numpy(rng.uniform(-90, 90, n)),
+                q={"m": torch.from_numpy(rng.uniform(0, 1, n))}, np=n)
+            fn = os.path.join(tmp, f"c{k}.nc")
+            atm_io.write_atm(fn, ctl, atm, 60.0)
+            a = atm_io.read_atm(fn, ctl, device="cuda")
+            b = atm_io.read_atm(fn, ctl, device="cpu")
+            report[f"clams{k}"] = max(column_diffs(
+                a.replace(time=a.time.cpu(), p=a.p.cpu(), lon=a.lon.cpu(),
+                          lat=a.lat.cpu(), q={q: v.cpu() for q, v in
+                                              a.q.items()}), b).values())
+        case = os.path.join(tmp, "case")
+        os.makedirs(case)
+        t_start, t_stop = DT_MET - 5 * 180.0, DT_MET + 5 * 180.0
+        flagship.write_case(case, 2048, (36, 19, 8), t_start, t_stop, 900,
+                            DT_MET, ("TPU_FAST", "2"))
+        flagship.convert_case(case, 1)
+        ctl = read_ctl(os.path.join(case, "trac.ctl"))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            sim = run_trac(case, "trac.ctl", "atm_in.bin",
+                           ("ATM_BASENAME", "atm_" + dev), device=dev,
+                           dtype=torch.float32)
+            if [r["route"] for r in sim.met.reads] != ["python", "native",
+                                                        "native"]:
+                raise RuntimeError(f"formats vs CPU: routes {sim.met.reads}")
+            out[dev] = atm_io.read_atm(
+                os.path.join(case, f"atm_{dev}_2000_01_01_01_15_00.bin"),
+                ctl, device="cpu")
+        errs = column_diffs(out["cuda"], out["cpu"])
+        report["run_trac_type1"] = errs
+        say(json.dumps({"formats_vs_cpu": report}))
+        bad = [k for k, v in report.items() if k != "run_trac_type1" and v]
+        for name in ("lon", "lat", "p"):
+            if not errs[name] <= TOLS_F32[name]:
+                bad.append(f"run_trac {name} {errs[name]:.3e}")
+        if bad:
+            raise RuntimeError(f"formats vs CPU: card and CPU differ: {bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ------------------------------------------------------ golden_long on card
@@ -2998,45 +3540,69 @@ def main():
     sys.path.insert(0, root)
     sys.path.insert(0, os.path.join(root, "tests"))
     t_start = time.time()
-    smi = phase_environment(torch)
-    usage = phase_build()
-    sim, counts = phase_main_path(torch, args.np, args.steps, args.profile)
-    kernels = phase_kernels(torch, sim, counts, usage)
+    seconds = {}
+
+    def phase(name, fn, *a):
+        """Run one phase, print its seconds, free what it left cached."""
+        t0 = time.time()
+        out = fn(*a)
+        torch.cuda.empty_cache()
+        seconds[name] = round(time.time() - t0, 1)
+        say(f"[phase] {name}: {seconds[name]} s")
+        return out
+
+    smi = phase("environment", phase_environment, torch)
+    usage = phase("build", phase_build)
+    sim, counts = phase("main_path", phase_main_path, torch, args.np,
+                        args.steps, args.profile)
+    kernels = phase("kernels", phase_kernels, torch, sim, counts, usage)
     del sim                     # one simulation is freed before the next
     torch.cuda.empty_cache()
-    sim, counts = phase_unfused_path(torch, args.np, args.steps,
-                                     args.profile)
-    kernels += phase_kernels_unfused(torch, sim, counts)
+    sim, counts = phase("unfused_path", phase_unfused_path, torch, args.np,
+                        args.steps, args.profile)
+    kernels += phase("kernels_unfused", phase_kernels_unfused, torch, sim,
+                     counts)
     del sim
     torch.cuda.empty_cache()
-    phase_card_vs_cpu(torch)
-    sim, counts = phase_chem_path(torch, args.np, args.steps, args.profile)
+    phase("card_vs_cpu", phase_card_vs_cpu, torch)
+    sim, counts = phase("chem_path", phase_chem_path, torch, args.np,
+                        args.steps, args.profile)
     del sim
     torch.cuda.empty_cache()
-    sim = phase_pbl_path(torch, args.np, args.steps, args.profile)
+    sim = phase("pbl_path", phase_pbl_path, torch, args.np, args.steps,
+                args.profile)
     del sim
     torch.cuda.empty_cache()
-    sim = phase_iso_path(torch, args.np, args.steps, args.profile)
+    sim = phase("iso_path", phase_iso_path, torch, args.np, args.steps,
+                args.profile)
     del sim
     torch.cuda.empty_cache()
-    sim = phase_kpp_path(torch, min(args.np, KPP_N), args.profile)
+    sim = phase("kpp_path", phase_kpp_path, torch, min(args.np, KPP_N),
+                args.profile)
     del sim
     torch.cuda.empty_cache()
-    phase_checkpoint(torch, min(args.np, CKPT_N))
-    torch.cuda.empty_cache()
-    phase_slice_vs_cpu(torch)
-    trac = phase_trac_path(torch, args.np)
-    torch.cuda.empty_cache()
-    phase_output_path(torch, args.np, trac)
-    torch.cuda.empty_cache()
-    phase_trac_vs_cpu(torch)
-    phase_writers_vs_cpu(torch)
-    phase_golden_long(torch)
-    phase_golden_chem(torch)
-    phase_zeta_path(torch, args.np)
-    torch.cuda.empty_cache()
-    phase_golden_zeta(torch)
-    kernels += phase_probes(torch, args.np)
+    phase("checkpoint", phase_checkpoint, torch, min(args.np, CKPT_N))
+    phase("card_vs_cpu_slice", phase_slice_vs_cpu, torch)
+    trac = phase("trac_path", phase_trac_path, torch, args.np)
+    try:
+        # the phases that run on trac_path's case and files
+        phase("bin_path", phase_bin_path, torch, trac)
+        phase("codec_path", phase_codec_path, torch, trac)
+        phase("capi", phase_capi, torch, trac)
+    finally:
+        shutil.rmtree(trac["tmp"], ignore_errors=True)
+    phase("grib_path", phase_grib_path, torch)
+    phase("clams_atm", phase_clams_atm, torch, args.np)
+    phase("formats_vs_cpu", phase_formats_vs_cpu, torch)
+    phase("output_path", phase_output_path, torch, args.np, trac)
+    phase("trac_vs_cpu", phase_trac_vs_cpu, torch)
+    phase("writers_vs_cpu", phase_writers_vs_cpu, torch)
+    phase("golden_long", phase_golden_long, torch)
+    phase("golden_chem", phase_golden_chem, torch)
+    phase("zeta_path", phase_zeta_path, torch, args.np)
+    phase("golden_zeta", phase_golden_zeta, torch)
+    kernels += phase("probes", phase_probes, torch, args.np)
+    say(json.dumps({"phase_seconds": seconds}))
     say(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -10,7 +10,7 @@ from one state.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -165,3 +165,100 @@ def write_case(dirname: str, n_parcels: int, grid: Sequence[int],
     with open(dirlist, "w") as f:
         f.write(dirname + "\n")
     return dirlist
+
+
+def _convert_file(job):
+    """File ``k`` of a case into a container: (path, stats).  A task of
+    ``convert_case``, also in a worker process."""
+    import os
+
+    from mptrac_tpu_torch.met.bin_io import write_met_bin
+    from mptrac_tpu_torch.met.build import read_met
+    from mptrac_tpu_torch.met.read_nc import get_met_filename
+
+    ctl_file, k, args = job
+    ctl = read_ctl(ctl_file)
+    bin_ctl = read_ctl(ctl_file, args)
+    met = read_met(get_met_filename(ctl, k * ctl.dt_met, 1), ctl,
+                   read_clim(ctl, device="cpu"), device="cpu")
+    path = get_met_filename(bin_ctl, k * ctl.dt_met, 1)
+    stats = []
+    write_met_bin(path, met, bin_ctl.met_type,
+                  pck_zstd=bool(bin_ctl.met_pck_zstd), ctl=bin_ctl,
+                  stats=stats)
+    return os.path.abspath(path), stats
+
+
+def convert_case(dirname: str, met_type: int, extra_ctl: Sequence[str] = (),
+                 stats: Optional[list] = None, workers: int = 1) -> list:
+    """Convert the case's three netCDF met files (``write_case``) into
+    binary containers of ``met_type`` beside them (``met/bin_io``, the
+    port's writer: each file read and preprocessed on the host, then
+    written; ``workers`` > 1 converts the files in as many processes)
+    and set ``MET_TYPE`` and ``extra_ctl`` (e.g. ``MET_PCK_ZSTD 1``, a
+    lossy codec's settings) in ``trac.ctl``.  ``stats`` collects each 3-D
+    field's (name, codec, values, stored bytes).  Returns the paths
+    written."""
+    import os
+
+    ctl_file = os.path.join(dirname, "trac.ctl")
+    args = ["MET_TYPE", str(met_type), *extra_ctl]
+    jobs = [(ctl_file, k, args) for k in range(3)]
+    if workers > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        with ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+            done = list(ex.map(_convert_file, jobs))
+    else:
+        done = [_convert_file(job) for job in jobs]
+    if stats is not None:
+        for _, st in done:
+            stats.extend(st)
+    with open(ctl_file, "a") as f:
+        for key, value in zip(args[0::2], args[1::2]):
+            f.write(f"{key} = {value}\n")
+    return [path for path, _ in done]
+
+
+#: (ECMWF code, 3-D field, the reader's scale) of the GRIB level set
+GRIB_LEVEL_FIELDS = ((130, "t", 1.0), (131, "u", 1.0), (132, "v", 1.0),
+                     (135, "w", 0.01), (133, "h2o", "h2o"), (203, "o3", "o3"))
+
+
+def write_grib_met(path_xx: str, met, levels: Sequence[float],
+                   when=(2000, 1, 1, 0, 0)) -> None:
+    """One snapshot as a GRIB2 set for ``MET_TYPE 6`` (``io/grib2``'s
+    encoder, 16-bit simple packing): ``path_xx`` with ``XX`` -> ``ml``
+    holds t, u, v, w, h2o and o3 on the isobaric ``levels`` [hPa] (one a
+    level of ``met``, whole hPa: GRIB's levels are integers), ``sf`` holds
+    ps, zs, ts and lsm, each in the units that ``met/read_grib`` scales
+    back.  The wraparound column of a periodic ``met`` is dropped."""
+    from mptrac_tpu_torch.constants import G0, MA, MH2O, MO3
+    from mptrac_tpu_torch.io.grib2 import encode_message
+
+    if len(levels) != met.npl or len(set(int(x) for x in levels)) != met.npl:
+        raise ValueError("one distinct whole-hPa level per met level")
+    nx = met.nx - 1 if met.lon_periodic else met.nx
+    lon, lat = met.lon[:nx].cpu().numpy(), met.lat.cpu().numpy()
+    scales = {"h2o": MA / MH2O, "o3": MA / MO3}
+
+    def grid(a):
+        return np.ascontiguousarray(a.cpu().numpy()[:nx].T, np.float64)
+
+    ml = bytearray()
+    for code, name, scale in GRIB_LEVEL_FIELDS:
+        scale = scales.get(scale, scale)
+        for k, lev in enumerate(levels):
+            ml += encode_message(code, int(lev),
+                                 grid(met.fields3d[name][:, :, k]) / scale,
+                                 lon, lat, when=when, level_type=100)
+    sf = bytearray()
+    for code, name, scale in ((134, "ps", 0.01), (129, "zs", 1 / (1000 * G0)),
+                              (167, "ts", 1.0), (172, "lsm", 1.0)):
+        sf += encode_message(code, 0, grid(met.fields2d[name]) / scale, lon,
+                             lat, when=when, level_type=1)
+    with open(path_xx.replace("XX", "ml"), "wb") as f:
+        f.write(ml)
+    with open(path_xx.replace("XX", "sf"), "wb") as f:
+        f.write(sf)

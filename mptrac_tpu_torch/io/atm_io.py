@@ -6,7 +6,11 @@ c:8097, 12546, read/write_atm_nc c:8217, 12815).  ASCII format: columns
 ``time z[km] lon lat q...`` (z converted to pressure via the barometric
 formula on read).  Files are read and written on the host with numpy;
 ``read_atm`` places the columns on ``device``, ``write_atm`` fetches
-them.  The CLaMS containers (types 3 and 4) are not ported.
+them.  The CLaMS particle files (types 3 and 4, read_atm_clams c:8154,
+write_atm_clams c:12598) are netCDF files with an ``NPARTS`` dimension:
+the JAX writer's bytes wherever the classic format (CDF-1) can hold
+them, and the 64-bit-offset format (CDF-2) beyond that
+(``clams_version``).
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ from mptrac_tpu_torch.types import Atm, resolve_device
 def read_atm(filename: str, ctl: Ctl, npmax: Optional[int] = None,
              dtype=torch.float64, device="cuda") -> Atm:
     """Read an atm file, dispatching on ATM_TYPE (reference
-    mptrac_read_atm, c:6331): 0 ASCII, 1 binary, 2 netCDF.  ``dtype`` is
-    the compute mode of positions and quantities."""
+    mptrac_read_atm, c:6331): 0 ASCII, 1 binary, 2 netCDF, 3/4 CLaMS.
+    ``dtype`` is the compute mode of positions and quantities."""
     dev = resolve_device(device)
     if ctl.atm_type == 0:
         cols, q = _read_atm_asc(filename, ctl)
@@ -36,9 +40,7 @@ def read_atm(filename: str, ctl: Ctl, npmax: Optional[int] = None,
     elif ctl.atm_type == 2:
         cols, q = _read_atm_nc(filename, ctl)
     elif ctl.atm_type in (3, 4):
-        raise NotImplementedError(
-            f"ATM_TYPE {ctl.atm_type}: io/atm_io.read_atm_clams is not "
-            "ported to mptrac_tpu_torch yet")
+        cols, q = _read_atm_clams(filename, ctl)
     else:
         raise NotImplementedError(f"ATM_TYPE {ctl.atm_type}")
     n = cols[0].size
@@ -75,6 +77,41 @@ def _read_atm_nc(filename: str, ctl: Ctl):
         q = {name: np.array(v[name][:], np.float64)
              for name in ctl.qnt_name if name in v}
         return cols, q
+    finally:
+        if hasattr(nc, "close"):
+            nc.close()
+
+
+def _read_atm_clams(filename: str, ctl: Ctl):
+    """CLaMS particle file with an ``NPARTS`` dimension (reference
+    read_atm_clams, c:8154): the time from ``TIME_INIT`` or the file's
+    ``time``; with ``ADVECT_VERT_COORD 1`` ``ZETA`` (to the quantity
+    ``zeta``) and ``PRESS`` (else 500 hPa), otherwise the pressure from
+    ``PRESS_INIT`` or ``PRESS``."""
+    from mptrac_tpu_torch.io.hdf5 import open_netcdf_any
+    v, nc = open_netcdf_any(filename)
+    try:
+        def col(name):
+            return np.array(v[name][:], np.float64).ravel()
+
+        lon, lat = col("LON"), col("LAT")
+        n = lon.size
+        if "TIME_INIT" in v:
+            time = col("TIME_INIT")
+        else:
+            time = np.full(n, float(np.array(v["time"][:]).ravel()[0]))
+        q = {}
+        if ctl.advect_vert_coord == 1:
+            zeta = col("ZETA")
+            p = col("PRESS") if "PRESS" in v else np.full(n, 500.0)
+            if "zeta" in ctl.qnt_name:
+                q["zeta"] = zeta
+        else:
+            p = col("PRESS_INIT" if "PRESS_INIT" in v else "PRESS")
+        for name in ctl.qnt_name:
+            if name not in q and name in v:
+                q[name] = col(name)
+        return [time, p, lon, lat], q
     finally:
         if hasattr(nc, "close"):
             nc.close()
@@ -130,7 +167,7 @@ def _n(t: torch.Tensor, n: int) -> np.ndarray:
 
 def write_atm(filename: str, ctl: Ctl, atm: Atm, t: float) -> None:
     """Dispatch on ATM_TYPE_OUT (reference mptrac_write_atm, c:7806):
-    0 ASCII, 1 binary, 2 netCDF."""
+    0 ASCII, 1 binary, 2 netCDF, 3/4 CLaMS."""
     if ctl.atm_type_out == 0:
         write_atm_asc(filename, ctl, atm, t)
     elif ctl.atm_type_out == 1:
@@ -138,9 +175,7 @@ def write_atm(filename: str, ctl: Ctl, atm: Atm, t: float) -> None:
     elif ctl.atm_type_out == 2:
         write_atm_nc(filename, ctl, atm)
     elif ctl.atm_type_out in (3, 4):
-        raise NotImplementedError(
-            f"ATM_TYPE_OUT {ctl.atm_type_out}: io/atm_io.write_atm_clams "
-            "is not ported to mptrac_tpu_torch yet")
+        write_atm_clams(filename, ctl, atm)
     else:
         raise NotImplementedError(f"ATM_TYPE_OUT {ctl.atm_type_out}")
 
@@ -166,6 +201,81 @@ def write_atm_nc(filename: str, ctl: Ctl, atm: Atm) -> None:
             v[:] = _n(atm.q[name], n)
             v.units = ctl.qnt_unit[iq].encode()
         nc.featureType = b"point"
+    finally:
+        nc.close()
+
+
+#: largest begin offset of a variable in a CDF-1 file (scipy packs it
+#: as a signed 32-bit integer)
+CDF1_MAX_BEGIN = 2 ** 31 - 1
+
+
+def _clams_layout(nc, n: int, ctl: Ctl) -> None:
+    """Dimensions, variables and attributes of a CLaMS particle file,
+    in the JAX writer's order (data left unset)."""
+    nc.createDimension("time", 1)
+    nc.createDimension("NPARTS", n)
+    nc.createVariable("time", "d", ("time",))
+    for name in ("LAT", "LON", "PRESS", "ZETA"):
+        nc.createVariable(name, "d", ("NPARTS",))
+    for name in ctl.qnt_name:
+        if name != "zeta":
+            nc.createVariable(name, "d", ("NPARTS",))
+    nc.exp_VERTCOOR_name = b"zeta"
+    nc.model = b"MPTRAC"
+
+
+def clams_begins(n: int, ctl: Ctl) -> dict:
+    """{variable: begin offset} of a CLaMS particle file of ``n``
+    parcels as scipy lays it out: the header (whose length does not
+    depend on ``n``), then the variables, the ``NPARTS`` ones first."""
+    import io
+
+    from scipy.io import netcdf_file
+    buf = io.BytesIO()
+    nc = netcdf_file(buf, "w")
+    _clams_layout(nc, 1, ctl)
+    names = list(nc.variables)
+    nc.flush()
+    header = len(buf.getvalue()) - 8 * len(names)
+    nc.close()
+    sizes = {name: 8 * (1 if name == "time" else n) for name in names}
+    # scipy's order: by shape, largest first, stable
+    order = sorted(names, key=sizes.get, reverse=True)
+    begins, pos = {}, header
+    for name in order:
+        begins[name] = pos
+        pos += sizes[name]
+    return begins
+
+
+def clams_version(n: int, ctl: Ctl) -> int:
+    """The netCDF format of a CLaMS particle file of ``n`` parcels: 1,
+    the classic format that the JAX writer always writes, while every
+    variable begins below 2 GiB; 2 (64-bit offsets) beyond, where the
+    JAX writer fails (at 100,663,296 parcels ``ZETA`` begins at 2.4e9
+    B)."""
+    return 1 if max(clams_begins(n, ctl).values()) <= CDF1_MAX_BEGIN else 2
+
+
+def write_atm_clams(filename: str, ctl: Ctl, atm: Atm) -> None:
+    """CLaMS position file (reference write_atm_clams, c:12598): the JAX
+    writer's file in ``clams_version``'s format."""
+    from scipy.io import netcdf_file
+    n = int(atm.np)
+    nc = netcdf_file(filename, "w", version=clams_version(n, ctl))
+    try:
+        _clams_layout(nc, n, ctl)
+        var = nc.variables
+        var["time"][:] = [float(atm.time[0]) if n else 0.0]
+        for name, col in (("LAT", atm.lat), ("LON", atm.lon),
+                          ("PRESS", atm.p)):
+            var[name][:] = _n(col, n)
+        var["ZETA"][:] = (_n(atm.q["zeta"], n) if "zeta" in atm.q
+                          else np.zeros(n))
+        for name in ctl.qnt_name:
+            if name != "zeta":
+                var[name][:] = _n(atm.q[name], n)
     finally:
         nc.close()
 

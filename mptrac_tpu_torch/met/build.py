@@ -1,10 +1,12 @@
 """Met snapshot assembly: read + preprocess -> Met.
 
 Counterpart of the JAX package's ``met/build.py``: orchestrates the
-reference ``mptrac_read_met`` chain (mptrac.c:7436-7545) on the host
-with numpy and uploads the finished fields to ``device``.  Only the
-netCDF reader (``MET_TYPE 0``) is ported; the binary, packed, compressed
-and grib containers raise ``NotImplementedError`` naming their reader.
+reference ``mptrac_read_met`` chain (mptrac.c:7436-7545).  netCDF
+(``MET_TYPE 0``) and GRIB (6) files go through the host chain with
+numpy, and the finished fields are uploaded to ``device``.  The binary
+containers (1-5, 7, 8) store fields that are already preprocessed: they
+skip the chain, and ``met/bin_io`` decodes their numeric stage on the
+device itself.
 """
 
 from __future__ import annotations
@@ -16,14 +18,11 @@ import numpy as np
 import torch
 
 from mptrac_tpu_torch.config import Ctl
+from mptrac_tpu_torch.met.bin_io import BIN_TYPES
 from mptrac_tpu_torch.types import Met, _axis_is_arithmetic, resolve_device
 
-#: MET_TYPE -> the reader of the JAX package that is not ported yet
-_UNPORTED_READERS = {
-    1: "met/bin_io.read_met_bin (binary)", 2: "met/bin_io (pck)",
-    3: "met/lossy (zfp)", 4: "met/bin_io (zstd)", 5: "met/lossy (cms)",
-    6: "met/read_grib.read_met_grib (grib)", 7: "met/lossy (sz3)",
-    8: "met/lz4 (lz4)"}
+#: every MET_TYPE with a reader: netCDF, the binary containers, GRIB
+MET_TYPES = (0, 6) + BIN_TYPES
 
 
 def interp_columns_at(field3, lon, lat, p, ptarget, coord_type=0):
@@ -51,28 +50,39 @@ def interp_columns_at(field3, lon, lat, p, ptarget, coord_type=0):
 
 
 def check_met_type(ctl: Ctl) -> None:
-    """Raise for a ``MET_TYPE`` whose reader is not ported."""
-    if ctl.met_type != 0:
-        reader = _UNPORTED_READERS.get(ctl.met_type)
+    """Raise for a ``MET_TYPE`` that names no reader."""
+    if ctl.met_type not in MET_TYPES:
         raise NotImplementedError(
-            f"MET_TYPE {ctl.met_type}: "
-            + (f"{reader} is not ported to mptrac_tpu_torch yet"
-               if reader else "no such meteo data type"))
+            f"MET_TYPE {ctl.met_type}: no such meteo data type")
 
 
 def read_met(filename: str, ctl: Ctl, clim=None, device="cuda",
              timings: Dict[str, float] = None) -> Met:
     """Read one meteo file and run the preprocessing chain
     (reference mptrac_read_met, c:7436).  ``timings``, when given, gets
-    the seconds of the three stages added under ``read``,
-    ``preprocess`` and ``upload``."""
+    the seconds of the stages added: ``read``, ``preprocess`` and
+    ``upload`` for netCDF and GRIB files (``read`` includes the GRIB bit
+    unpacking), ``bin_io.STAGES`` for the binary containers."""
     from mptrac_tpu_torch.met import process
-    from mptrac_tpu_torch.met.read_nc import read_met_nc
 
     dev = resolve_device(device)
     check_met_type(ctl)
+    if ctl.met_type in BIN_TYPES:
+        # Binary containers store fully preprocessed fields
+        # (reference c:7481 applies the chain to nc/grib only)
+        from mptrac_tpu_torch.met.bin_io import read_met_bin
+        raw = read_met_bin(filename, ctl, device=dev, timings=timings)
+        if raw["p"][0] < raw["p"][-1]:
+            raise ValueError("Pressure levels must be descending!")
+        return _to_met(ctl, raw, raw["lon"], raw["lat"], raw["p"],
+                       raw["fields2d"], raw["fields3d"], dev)
     t0 = _time.perf_counter()
-    raw = read_met_nc(filename, ctl)
+    if ctl.met_type == 0:
+        from mptrac_tpu_torch.met.read_nc import read_met_nc
+        raw = read_met_nc(filename, ctl)
+    else:
+        from mptrac_tpu_torch.met.read_grib import read_met_grib
+        raw = read_met_grib(filename, ctl)
     t1 = _time.perf_counter()
     lon = raw["lon"]
     lat = raw["lat"]
@@ -156,13 +166,17 @@ def _log_ranges(filename, raw, lon, lat, p, f2, f3):
 
 
 def _to_met(ctl: Ctl, raw, lon, lat, p, f2, f3, dev) -> Met:
-    """The finished host arrays as a ``Met`` on ``dev``: float64 axes,
-    float32 fields, the time a host float."""
+    """The finished fields as a ``Met`` on ``dev``: float64 axes,
+    float32 fields (host arrays uploaded, device tensors as they are),
+    the time a host float.  ``lon_periodic`` is what the reader set,
+    False for a binary container, as in the JAX package."""
     def axis(a):
         return torch.from_numpy(
             np.ascontiguousarray(a, dtype=np.float64)).to(dev)
 
     def fld(a):
+        if isinstance(a, torch.Tensor):       # decoded on the device
+            return a.to(dev, torch.float32)
         return torch.from_numpy(
             np.ascontiguousarray(a, dtype=np.float32)).to(dev)
 

@@ -1,0 +1,475 @@
+"""Lossy met-field codecs: SZ3-style predict+quantize (met_type 7),
+ZFP-style block transform (met_type 3) and CMS-style multiscale
+thresholding (met_type 5).
+
+Counterpart of the JAX package's ``met/lossy.py``, with the same
+streams (the ZSTD frames' compressed bytes depend on the zstd release,
+see ``met/zstd``).  The reference links external libraries for these slots
+(compress_sz3 mptrac.c:1261-1457, compress_zfp c:1447-1624, compress_cms
+c:468-810); their byte streams are library-defined, so both packages
+implement the same *codec families* with self-contained formats:
+
+- **Type 7 (SQZ, SZ3-style)**: per-level error-bounded scalar
+  quantization (absolute tolerance MET_SZ3_TOL or relative precision
+  MET_SZ3_PREC bits of the per-level range), 2-D integer Lorenzo
+  prediction (exact in integer space, so the error bound survives),
+  entropy coding via ZSTD (``met/zstd``).  Guarantee: |x' - x| <= step
+  / 2 per value.
+- **Type 3 (ZFP-style)**: 4x4x4 blocks, a per-block power-of-two
+  exponent, a separable 2-level Haar transform, fixed-precision or
+  fixed-accuracy coefficient quantization, ZSTD.
+- **Type 5 (CMS, multiscale)**: per-level 2-D Haar multiscale
+  transform (MET_CMS_MAXLEV levels), coefficient deadzone quantization
+  at eps = MET_CMS_EPS x level range, ZSTD.
+
+All honor the reference's per-level scale-to-unit machinery
+(compress_scale_to_unit c:811-850, compress_read/write_lossy_scale
+c:874-969, MET_LOSSY_SCALE[var]) with the same stream framing: an int32
+enabled flag followed by off[nz] and scl[nz] doubles.
+
+Arrays are [nxy, nz] float32 level-fastest, like the bin container.
+The encoders run on the host with numpy, the JAX package's arithmetic.
+Each decoder reads its stream and undoes the ZSTD stage on the host,
+uploads the integer stream in its narrow type, and runs the numeric
+stage as torch on ``dev`` (the double ``cumsum``, the inverse block
+transform, the Haar pyramid inverse, ``unscale_from_unit``), in the
+order and precision of the numpy decoder, so that a field decodes to
+the same bits on either device.  ``stages`` (``bin_io.Stages``) adds
+each stage's seconds to the caller's timings.
+"""
+
+from __future__ import annotations
+
+import io
+import struct
+
+import numpy as np
+import torch
+
+#: reference METVAR name order (compress_metvar_index, c:969-983)
+METVAR_NAMES = ("z", "t", "u", "v", "w", "pv", "h2o", "o3",
+                "lwc", "rwc", "iwc", "swc", "cc")
+
+
+def metvar_index(name: str) -> int:
+    return METVAR_NAMES.index(name.lower())
+
+
+def scale_to_unit(arr: np.ndarray):
+    """Per-level [0, 1] rescale (reference compress_scale_to_unit,
+    c:811-850).  Returns (scaled, off[nz], scl[nz])."""
+    off = arr.min(axis=0).astype(np.float64)
+    vmax = arr.max(axis=0).astype(np.float64)
+    rng = vmax - off
+    ref = np.maximum(1.0, np.maximum(np.abs(off), np.abs(vmax)))
+    scl = np.where(rng > 1e-12 * ref, rng, 0.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        out = np.where(scl > 0, (arr - off) / np.where(scl > 0, scl, 1),
+                       0.0).astype(np.float32)
+    return out, off, scl
+
+
+def unscale_from_unit(arr: torch.Tensor, off, scl) -> torch.Tensor:
+    """Inverse (reference compress_unscale_from_unit, c:853-870): the
+    float32 ``arr`` times the float64 scale, plus the offset, in float64
+    (as numpy promotes), back to float32."""
+    off = torch.from_numpy(np.asarray(off, np.float64)).to(arr.device)
+    scl = torch.from_numpy(np.asarray(scl, np.float64)).to(arr.device)
+    return torch.where(scl > 0, arr * scl + off, off).to(torch.float32)
+
+
+def _write_lossy_scale(f, enabled: bool, off=None, scl=None):
+    f.write(struct.pack("<i", 1 if enabled else 0))
+    if enabled:
+        f.write(np.asarray(off, "<f8").tobytes())
+        f.write(np.asarray(scl, "<f8").tobytes())
+
+
+def _read_lossy_scale(f, nz: int):
+    enabled, = struct.unpack("<i", f.read(4))
+    if enabled not in (0, 1):
+        raise ValueError("Invalid stored MET_LOSSY_SCALE flag!")
+    if enabled:
+        off = np.fromfile(f, "<f8", nz)
+        scl = np.fromfile(f, "<f8", nz)
+        return True, off, scl
+    return False, None, None
+
+
+def _zstd(data: bytes, level: int = 3) -> bytes:
+    from mptrac_tpu_torch.met import zstd
+    return zstd.compress(data, level)
+
+
+def _unzstd(data: bytes, max_size: int) -> np.ndarray:
+    from mptrac_tpu_torch.met import zstd
+    return zstd.decompress(data, max_size)
+
+
+def _pack_ints(q: np.ndarray):
+    """Narrowest exact integer container for the quantized stream."""
+    amax = np.abs(q).max(initial=0)
+    for code, dt in ((0, np.int8), (1, np.int16), (2, np.int32)):
+        if amax <= np.iinfo(dt).max:
+            return code, q.astype("<" + np.dtype(dt).str[1:])
+    return 3, q.astype("<i8")
+
+
+_INT_DT = {0: "<i1", 1: "<i2", 2: "<i4", 3: "<i8"}
+
+
+def upload(buf, dtype, dev) -> torch.Tensor:
+    """The bytes ``buf`` as a 1-D tensor of numpy ``dtype`` on ``dev``
+    (an immutable buffer copied first, so that no tensor aliases it)."""
+    a = np.frombuffer(buf, dtype)
+    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(dev)
+
+
+def _f64(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float64)).to(dev)
+
+
+# ---------------------------------------------------------------- SQZ
+
+def sqz_compress(ctl, name: str, arr: np.ndarray, nx: int, ny: int
+                 ) -> bytes:
+    """SZ3-style stream for one 3-D variable; arr [nxy, nz] f32."""
+    mv = metvar_index(name)
+    prec = ctl.met_sz3_prec[mv]
+    tol = ctl.met_sz3_tol[mv]
+    if (prec > 0) == (tol > 0.0):
+        raise ValueError(
+            "Exactly one of precision or tolerance must be set for "
+            "SZ3!")
+    nxy, nz = arr.shape
+    out = bytearray()
+    use_scale = bool(ctl.met_lossy_scale[mv])
+    if use_scale:
+        arr, off, scl = scale_to_unit(arr)
+    # quantize the per-level-offset value: flat levels stay exactly
+    # representable (q = 0) and |q| <= range/step keeps the integer
+    # stream narrow
+    lo = arr.min(axis=0).astype(np.float64)
+    rng = (arr.max(axis=0).astype(np.float64) - lo)
+    if tol > 0.0:
+        step = np.full(nz, tol)
+    else:
+        step = np.maximum(rng, 1e-30) * 0.5 ** prec
+    # error-bounded uniform quantization: |x - (lo + step*q)| <= step/2
+    q = np.rint((arr - lo) / step).astype(np.int64)
+    # 2-D integer Lorenzo along the xy grid per level (exact inverse
+    # by double cumsum)
+    q3 = q.reshape(nx, ny, nz)
+    d = np.diff(np.diff(q3, axis=0, prepend=0), axis=1, prepend=0)
+    code, di = _pack_ints(d.reshape(-1))
+    payload = _zstd(di.tobytes(), level=3)
+
+    buf = io.BytesIO()
+    _write_lossy_scale(buf, use_scale,
+                       off if use_scale else None,
+                       scl if use_scale else None)
+    out += buf.getvalue()
+    out += struct.pack("<iid", prec, code, tol)
+    out += np.asarray(step, "<f8").tobytes()
+    out += np.asarray(lo, "<f8").tobytes()
+    out += struct.pack("<Q", len(payload))
+    out += payload
+    return bytes(out)
+
+
+def sqz_decompress(f, nx: int, ny: int, nz: int, dev,
+                   stages) -> torch.Tensor:
+    nxy = nx * ny
+    with stages("read"):
+        stored, off, scl = _read_lossy_scale(f, nz)
+        prec, code, tol = struct.unpack("<iid", f.read(16))
+        step = np.fromfile(f, "<f8", nz)
+        lo = np.fromfile(f, "<f8", nz)
+        plen, = struct.unpack("<Q", f.read(8))
+        comp = f.read(plen)
+    with stages("decode_host"):
+        raw = _unzstd(comp, 8 * nxy * nz)
+    with stages("upload"):
+        d = upload(raw, _INT_DT[code], dev)
+    with stages("decode_device"):
+        d = d.to(torch.int64).reshape(nx, ny, nz)
+        q = torch.cumsum(torch.cumsum(d, dim=1), dim=0)
+        arr = (q * _f64(step, dev) + _f64(lo, dev)).to(
+            torch.float32).reshape(nxy, nz)
+        if stored:
+            arr = unscale_from_unit(arr, off, scl)
+    return arr
+
+
+# ---------------------------------------------------------------- ZFP
+
+def _block_transform(b, inverse=False):
+    """Separable 2-level Haar over each axis of [..., 4, 4, 4] blocks
+    (the decorrelating transform of the ZFP-style codec; the real ZFP
+    uses its own non-orthogonal lifting — same codec family, different
+    basis).  numpy, the encoder's."""
+    def haar4(x, axis):
+        x = np.moveaxis(x, axis, -1)
+        a = (x[..., 0::2] + x[..., 1::2]) * 0.5
+        d = (x[..., 0::2] - x[..., 1::2]) * 0.5
+        aa = (a[..., 0:1] + a[..., 1:2]) * 0.5
+        ad = (a[..., 0:1] - a[..., 1:2]) * 0.5
+        out = np.concatenate([aa, ad, d], axis=-1)
+        return np.moveaxis(out, -1, axis)
+
+    def ihaar4(x, axis):
+        x = np.moveaxis(x, axis, -1)
+        aa, ad, d = x[..., 0:1], x[..., 1:2], x[..., 2:4]
+        a0 = aa + ad
+        a1 = aa - ad
+        a = np.concatenate([a0, a1], axis=-1)
+        out = np.empty_like(x)
+        out[..., 0::2] = a + d
+        out[..., 1::2] = a - d
+        return np.moveaxis(out, -1, axis)
+
+    f = ihaar4 if inverse else haar4
+    for ax in (-3, -2, -1):
+        b = f(b, ax)
+    return b
+
+
+def _block_inverse(b: torch.Tensor) -> torch.Tensor:
+    """``_block_transform(b, inverse=True)`` in torch, the same
+    operations in the same order."""
+    for axis in (-3, -2, -1):
+        x = b.movedim(axis, -1)
+        aa, ad, d = x[..., 0:1], x[..., 1:2], x[..., 2:4]
+        a = torch.cat([aa + ad, aa - ad], dim=-1)
+        out = torch.empty_like(x)
+        out[..., 0::2] = a + d
+        out[..., 1::2] = a - d
+        b = out.movedim(-1, axis)
+    return b
+
+
+def pow2(e: torch.Tensor) -> torch.Tensor:
+    """2**e in float64 for integer exponents in [-1022, 1023], built from
+    the exponent bits: exact on every device (``torch.ldexp`` multiplies
+    by ``pow(2, e)``, whose last bit the card's math library decides)."""
+    e = e.to(torch.int64)
+    if e.numel() and not (int(e.min()) >= -1022 and int(e.max()) <= 1023):
+        raise ValueError("ZFP block exponent out of the float64 range")
+    return ((e + 1023) << 52).view(torch.float64)
+
+
+def zfp_compress(ctl, name: str, arr: np.ndarray, nx: int, ny: int
+                 ) -> bytes:
+    """ZFP-style stream (met_type 3): 4x4x4 block transform with
+    per-block exponent alignment and fixed-precision coefficient
+    quantization (reference compress_zfp, c:1447-1624: library ZFP
+    with MET_ZFP_PREC bit planes or MET_ZFP_TOL accuracy mode)."""
+    mv = metvar_index(name)
+    prec = ctl.met_zfp_prec[mv]
+    tol = ctl.met_zfp_tol[mv]
+    if (prec > 0) == (tol > 0.0):
+        raise ValueError(
+            "Exactly one of precision or tolerance must be set for "
+            "ZFP!")
+    nxy, nz = arr.shape
+    use_scale = bool(ctl.met_lossy_scale[mv])
+    if use_scale:
+        arr, off, scl = scale_to_unit(arr)
+    a3 = np.asarray(arr, np.float64).reshape(nx, ny, nz)
+    px, py, pz = (-nx) % 4, (-ny) % 4, (-nz) % 4
+    a3 = np.pad(a3, ((0, px), (0, py), (0, pz)), mode="edge")
+    bx, by, bz = a3.shape[0] // 4, a3.shape[1] // 4, a3.shape[2] // 4
+    blocks = a3.reshape(bx, 4, by, 4, bz, 4).transpose(
+        0, 2, 4, 1, 3, 5).reshape(-1, 4, 4, 4)
+    amax = np.abs(blocks).max(axis=(1, 2, 3))
+    e = np.where(amax > 0, np.ceil(np.log2(np.maximum(amax, 1e-300))),
+                 -127).astype(np.int16)
+    s = np.exp2(e.astype(np.float64))[:, None, None, None]
+    coeff = _block_transform(np.where(s > 0, blocks / s, 0.0))
+    if tol > 0.0:
+        # accuracy mode: absolute step (coefficients are in units of
+        # the block scale, so divide the step by it)
+        step = np.maximum(tol / np.squeeze(s, (1, 2, 3)), 1e-30)
+        q = np.rint(coeff / step[:, None, None, None]).astype(np.int64)
+    else:
+        q = np.rint(coeff * float(2 ** prec)).astype(np.int64)
+    code, qi = _pack_ints(q.reshape(-1))
+    payload = _zstd(qi.tobytes(), level=3)
+
+    buf = io.BytesIO()
+    _write_lossy_scale(buf, use_scale,
+                       off if use_scale else None,
+                       scl if use_scale else None)
+    buf.write(struct.pack("<iid", prec, code, tol))
+    buf.write(np.asarray(e, "<i2").tobytes())
+    buf.write(struct.pack("<Q", len(payload)))
+    buf.write(payload)
+    return buf.getvalue()
+
+
+def zfp_decompress(f, nx: int, ny: int, nz: int, dev,
+                   stages) -> torch.Tensor:
+    nxy = nx * ny
+    bx, by, bz = -(-nx // 4), -(-ny // 4), -(-nz // 4)
+    nblk = bx * by * bz
+    with stages("read"):
+        stored, off, scl = _read_lossy_scale(f, nz)
+        prec, code, tol = struct.unpack("<iid", f.read(16))
+        ebytes = f.read(2 * nblk)
+        plen, = struct.unpack("<Q", f.read(8))
+        comp = f.read(plen)
+    with stages("decode_host"):
+        raw = _unzstd(comp, 8 * nblk * 64)
+    with stages("upload"):
+        q = upload(raw, _INT_DT[code], dev)
+        e = upload(ebytes, "<i2", dev)
+    with stages("decode_device"):
+        q = q.to(torch.float64).reshape(-1, 4, 4, 4)
+        s = pow2(e)[:, None, None, None]
+        if tol > 0.0:
+            step = torch.clamp(tol / s.reshape(-1), min=1e-30)
+            coeff = q * step[:, None, None, None]
+        else:
+            coeff = q / float(2 ** prec)
+        blocks = _block_inverse(coeff) * s
+        a3 = blocks.reshape(bx, by, bz, 4, 4, 4).permute(
+            0, 3, 1, 4, 2, 5).reshape(bx * 4, by * 4, bz * 4)
+        arr = a3[:nx, :ny, :nz].to(torch.float32).reshape(nxy, nz)
+        if stored:
+            arr = unscale_from_unit(arr, off, scl)
+    return arr
+
+
+# ---------------------------------------------------------------- CMS
+
+def _haar_fwd(a: np.ndarray, levels: int):
+    """2-D Haar pyramid on [nx, ny, nz] (per level nz); returns
+    (approx, [detail coeff arrays])."""
+    details = []
+    for _ in range(levels):
+        nx, ny = a.shape[0], a.shape[1]
+        if nx < 2 or ny < 2:
+            break
+        ex, ey = nx - nx % 2, ny - ny % 2
+        core = a[:ex, :ey]
+        s00 = core[0::2, 0::2]
+        s01 = core[0::2, 1::2]
+        s10 = core[1::2, 0::2]
+        s11 = core[1::2, 1::2]
+        ll = (s00 + s01 + s10 + s11) * 0.25
+        lh = (s00 - s01 + s10 - s11) * 0.25
+        hl = (s00 + s01 - s10 - s11) * 0.25
+        hh = (s00 - s01 - s10 + s11) * 0.25
+        details.append((lh, hl, hh, a[ex:, :], a[:ex, ey:]))
+        a = ll
+    return a, details
+
+
+def _haar_inv(a: torch.Tensor, details) -> torch.Tensor:
+    """The pyramid inverse in torch: each level's four sub-grids written
+    with strides, then the odd row and column appended."""
+    for lh, hl, hh, rx, ry in reversed(details):
+        s00 = a + lh + hl + hh
+        s01 = a - lh + hl - hh
+        s10 = a + lh - hl - hh
+        s11 = a - lh - hl + hh
+        nx2, ny2 = a.shape[0], a.shape[1]
+        out = torch.empty((nx2 * 2, ny2 * 2) + tuple(a.shape[2:]),
+                          dtype=a.dtype, device=a.device)
+        out[0::2, 0::2] = s00
+        out[0::2, 1::2] = s01
+        out[1::2, 0::2] = s10
+        out[1::2, 1::2] = s11
+        if ry.shape[1]:
+            out = torch.cat([out, ry], dim=1)
+        if rx.shape[0]:
+            out = torch.cat([out, rx], dim=0)
+        a = out
+    return a
+
+
+def cms_compress(ctl, name: str, arr: np.ndarray, nx: int, ny: int
+                 ) -> bytes:
+    """Multiscale stream for one 3-D variable; arr [nxy, nz] f32."""
+    mv = metvar_index(name)
+    eps = ctl.met_cms_eps[mv]
+    nxy, nz = arr.shape
+    use_scale = bool(ctl.met_lossy_scale[mv])
+    if use_scale:
+        arr, off, scl = scale_to_unit(arr)
+    lo = arr.min(axis=0).astype(np.float64)
+    a3 = (arr.reshape(nx, ny, nz) - lo).astype(np.float64)
+    rng = np.maximum(arr.max(axis=0) - lo, 1e-30)
+    step = (rng * eps).astype(np.float64)
+    approx, details = _haar_fwd(a3, int(ctl.met_cms_maxlev))
+
+    streams = [np.rint(approx / step).astype(np.int64).reshape(-1)]
+    for lh, hl, hh, rx, ry in details:
+        for cpart in (lh, hl, hh, rx, ry):
+            streams.append(np.rint(cpart / step).astype(np.int64).reshape(-1))
+    allq = np.concatenate(streams)
+    code, di = _pack_ints(allq)
+    payload = di.tobytes()
+    if ctl.met_cms_zstd:
+        payload = _zstd(payload, level=3)
+
+    buf = io.BytesIO()
+    _write_lossy_scale(buf, use_scale,
+                       off if use_scale else None,
+                       scl if use_scale else None)
+    buf.write(struct.pack("<iii", len(details), code,
+                          1 if ctl.met_cms_zstd else 0))
+    buf.write(np.asarray(step, "<f8").tobytes())
+    buf.write(np.asarray(lo, "<f8").tobytes())
+    buf.write(struct.pack("<Q", len(payload)))
+    buf.write(payload)
+    return buf.getvalue()
+
+
+def cms_decompress(f, nx: int, ny: int, nz: int, dev,
+                   stages) -> torch.Tensor:
+    nxy = nx * ny
+    with stages("read"):
+        stored, off, scl = _read_lossy_scale(f, nz)
+        nlev, code, zst = struct.unpack("<iii", f.read(12))
+        step = np.fromfile(f, "<f8", nz)
+        lo = np.fromfile(f, "<f8", nz)
+        plen, = struct.unpack("<Q", f.read(8))
+        payload = f.read(plen)
+    if zst:
+        with stages("decode_host"):
+            payload = _unzstd(payload, 16 * nxy * nz + 4096)
+    with stages("upload"):
+        allq = upload(payload, _INT_DT[code], dev)
+    with stages("decode_device"):
+        allq = allq.to(torch.float64)
+        step_t = _f64(step, dev)
+
+        # rebuild the pyramid shapes deterministically from (nx, ny, nlev)
+        cx, cy = nx, ny
+        lev_shapes = []
+        for _ in range(nlev):
+            ex, ey = cx - cx % 2, cy - cy % 2
+            hx, hy = ex // 2, ey // 2
+            lev_shapes.append(((hx, hy), (cx - ex, cy), (ex, cy - ey)))
+            cx, cy = hx, hy
+
+        pos = 0
+
+        def pull(shape):
+            nonlocal pos
+            cnt = int(np.prod(shape)) * nz
+            out = allq[pos:pos + cnt].reshape(shape + (nz,)) * step_t
+            pos += cnt
+            return out
+
+        approx = pull((cx, cy))
+        details = []
+        for hxy, rxs, rys in lev_shapes:
+            details.append((pull(hxy), pull(hxy), pull(hxy), pull(rxs),
+                            pull(rys)))
+        arr = (_haar_inv(approx, details) + _f64(lo, dev)).to(
+            torch.float32).reshape(nxy, nz)
+        if stored:
+            arr = unscale_from_unit(arr, off, scl)
+    return arr

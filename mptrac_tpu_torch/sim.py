@@ -90,8 +90,20 @@ class MetBuffer:
     moves to the other slot and the new one is copied in, so the device
     holds one pair and, while a file is read, one snapshot more.
     ``dtype`` is the compute mode that the pair's axes are cast to.
-    ``reads`` lists, for every file read, its name and the seconds of
-    reading, preprocessing and upload.
+
+    For MET_TYPE 1 and 2 without ``MET_PCK_ZSTD`` the native loader
+    (``native_loader.AsyncMetLoader``) decodes the next interval's file
+    on a C++ thread while the device integrates, as the JAX package's
+    buffer does: after every read the following file is queued, and a
+    file that was queued is taken from the loader.  A loader that cannot
+    be built raises; nothing falls back to the Python reader.
+
+    ``reads`` lists, for every file read, its name, its ``route``
+    (``"python"``: ``met/build.read_met``; ``"native"``: the loader), the
+    seconds of each stage (``read_met``'s, or the loader's ``wait``,
+    ``copy``, ``upload`` and ``decode_device``) and ``wait``, the
+    seconds the step waited for the decode-ahead (0 on the Python
+    route).
     """
 
     def __init__(self, ctl: Ctl, clim: Clim, device="cuda",
@@ -103,12 +115,43 @@ class MetBuffer:
         self.dtype = dtype
         self.pair: Optional[Met] = None
         self.reads: List[Dict[str, object]] = []
+        self._loader = None
+        self._prefetched: Optional[str] = None
+        if ctl.met_type in (1, 2) and not ctl.met_pck_zstd:
+            from mptrac_tpu_torch.native_loader import AsyncMetLoader
+            self._loader = AsyncMetLoader()
+
+    def close(self):
+        """Stop the decode-ahead thread."""
+        if self._loader is not None:
+            self._loader.close()
 
     def _read(self, filename: str) -> Met:
-        timings: Dict[str, float] = {}
-        met = read_met(filename, self.ctl, self.clim, device=self.device,
-                       timings=timings)
-        self.reads.append(dict(file=os.path.basename(filename), **timings))
+        timings: Dict[str, float] = {"wait": 0.0}
+        if self._loader is not None and self._prefetched == filename:
+            from mptrac_tpu_torch.met.bin_io import Stages, finish_raw
+            from mptrac_tpu_torch.met.build import _to_met
+            raw = self._loader.wait(timings)
+            self._prefetched = None
+            raw = finish_raw(dict(raw, coord_type=self.ctl.met_coord_type),
+                             self.device, Stages(timings, self.device))
+            met = _to_met(self.ctl, raw, raw["lon"], raw["lat"], raw["p"],
+                          raw["fields2d"], raw["fields3d"], self.device)
+            route = "native"
+        else:
+            met = read_met(filename, self.ctl, self.clim,
+                           device=self.device, timings=timings)
+            route = "python"
+        if self._loader is not None:
+            # queue the following interval's file for the decode-ahead
+            nxt = get_met_filename(
+                self.ctl, float(met.time)
+                + self.ctl.direction * self.ctl.dt_met, self.ctl.direction)
+            if os.path.exists(nxt) and nxt != self._prefetched:
+                self._loader.prefetch(nxt, self.ctl.met_type)
+                self._prefetched = nxt
+        self.reads.append(dict(file=os.path.basename(filename), route=route,
+                               **timings))
         return astype_state(met=met, dtype=self.dtype)
 
     def swap_due(self, t: float) -> bool:

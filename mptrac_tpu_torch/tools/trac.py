@@ -10,6 +10,9 @@ and particle files; tasks run sequentially (the reference distributes
 them over MPI ranks: set MPTRAC_NTASK / MPTRAC_RANK for a job array, or
 MPTRAC_WORKERS for a local process pool).
 
+The control file's ``MET_TYPE`` (0 netCDF, 1-5, 7, 8 the binary
+containers, 6 GRIB) and ``ATM_TYPE``/``ATM_TYPE_OUT`` (0 ASCII, 1
+binary, 2 netCDF, 3 and 4 CLaMS) choose the file formats.
 ``--device`` defaults to ``cuda`` and the run raises without a GPU;
 ``--device cpu`` runs the plain PyTorch versions of the kernels.
 ``--dtype`` is the compute mode: ``float64`` (default, the

@@ -33,7 +33,9 @@ def test_port_imports_no_jax():
                  "physics.bound", "physics.mixing", "physics.depo",
                  "io.writers", "io.obs", "io.kernel", "physics.pbl",
                  "physics.sedi", "physics.isosurf", "physics.kpp",
-                 "checkpoint"):
+                 "checkpoint", "met.bin_io", "met.lossy", "met.lz4",
+                 "met.read_grib", "io.grib1", "io.grib2", "native_loader",
+                 "capi"):
         assert "mptrac_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -58,3 +60,25 @@ def test_sources_import_no_jax():
         with open(f) as fh:
             m = _IMPORT_RE.search(fh.read())
         assert m is None, f"{f}: {m.group(0) if m else ''}"
+
+
+def test_host_sources_live_in_the_package():
+    """The decode-ahead's C++ sources and the C shim are the port's own
+    copies inside the package; the shim drives the port's ``capi``.
+    Nothing is built from or loaded out of the JAX package's ``native/``
+    or ``bindings/``."""
+    from mptrac_tpu_torch import capi, native_loader
+    pkg = os.path.join(ROOT, "mptrac_tpu_torch")
+    for d in (native_loader.HOST_SRC, capi.BINDINGS):
+        assert os.path.dirname(os.path.dirname(d)) == pkg or \
+            os.path.dirname(d) == pkg, d
+    for name in native_loader.SOURCES:
+        assert os.path.isfile(os.path.join(native_loader.HOST_SRC, name))
+    with open(os.path.join(capi.BINDINGS, "mptrac_c.c")) as f:
+        shim = f.read()
+    assert '"mptrac_tpu_torch.capi"' in shim
+    assert '"mptrac_tpu.capi"' not in shim
+    build = os.path.join(ROOT, "build", "mptrac_tpu_torch")
+    assert os.path.dirname(os.path.dirname(
+        native_loader.library_path())) == build
+    assert os.path.dirname(capi.shim_dir()) == build
