@@ -128,7 +128,28 @@ non-zero code and prints no result.  Phases, each of which must pass:
 27. clams atm: CLaMS particle files (types 3 and 4) of N parcels written
     and read back equal (CDF-2), seconds and bytes;
 28. formats against CPU: each new reader at the tests' size, card
-    against CPU, and ``run_trac`` from MET_TYPE 1 files.
+    against CPU, and ``run_trac`` from MET_TYPE 1 files;
+29. dd path: bench_dd's case (bench.py:300-412) at N parcels, nothing
+    cut: the flagship without diffusion and decay on the exact float32
+    path, the plain step (``rate_1``), the domain-decomposed step of
+    4 x 2 subdomains in the local group (cap 2N/8 a subdomain, exch_cap
+    cap/8; counted as the main path) and the DD step without the
+    exchange, 2 + 5 steps each: ms a step, the exchange's and
+    compaction's ms, migrated parcels, overflow, lost, peak memory, one
+    more DD step with every K3 launch in it timed, and one with the
+    allocator read at the edges of its stages (the peak's breakdown);
+    live + lost == N;
+30. dd against CPU: tests/test_dd.py's case (200 parcels, DD 4 x 2, 24
+    steps, float64) card against CPU slot by slot and against the plain
+    run on the card, then the 3 x 3 stress case (10,000 parcels,
+    diffusion on) on the card: conservation, overflow at exch_cap 1,
+    lost parcels on a regional grid;
+31. dd dist: the process-group route on dd_worker.py's case: one NCCL
+    rank a card (this script with ``--dd-rank``), its block against the
+    local group's bit for bit; then two ranks on one card over NCCL and,
+    where NCCL refuses them as a duplicate GPU, over gloo with the ranks'
+    CUDA buffers; which backend carried it is printed, and any other
+    failure, or none carrying it, fails the phase.
 
 Every phase prints its seconds (``[phase]`` lines, ``phase_seconds``).
 The environment phase also names the libzstd that ``met/zstd`` binds and
@@ -139,7 +160,8 @@ The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 The ``{"kernels": [...]}`` line lists K1-K7 (K5 as its gather and its
-table build) and P1-P3.
+table build) and P1-P3; K3's entry carries its launches and times on
+the dd path (``dd_path``).
 
 N is fixed at 100,663,296 parcels (100M rounded up to a multiple of
 2^21, the size the JAX benchmark uses).  ``--np`` and ``--steps`` exist
@@ -3520,6 +3542,730 @@ def phase_probes(torch, n_large):
     return kernels
 
 
+# ------------------------------------------------ the parallel layer
+
+#: bench_dd's case (bench.py:300-412): DD 4 x 2, halo 4, cap 2N/8 a
+#: subdomain, exch_cap cap/8, no diffusion and no decay, the exact path
+DD_ZONAL, DD_MERID, DD_HALO = 4, 2, 4
+DD_WARMUP, DD_TIMED = 2, 5
+#: tests/test_dd.py's case and the stress case of
+#: tests/helpers/dd_stress_worker.py (both also in tests/test_torch_dd.py)
+DD_TEST_ARGS = ("NQ", "1", "QNT_NAME[0]", "idx", "METBASE", "-",
+                "DIFFUSION", "0", "ADVECT", "4", "DD", "1",
+                "DD_SUBDOMAINS_ZONAL", "4", "DD_SUBDOMAINS_MERIDIONAL", "2",
+                "DD_HALOS_SIZE", "4", "MET_DT_OUT", "0", "T_STOP", "86400",
+                "DT_MOD", "1200")
+DD_STRESS_ARGS = ("NQ", "1", "QNT_NAME[0]", "idx", "METBASE", "-",
+                  "DIFFUSION", "1", "TURB_DX_TROP", "50", "TURB_DZ_TROP",
+                  "0.1", "TURB_MESOX", "0.16", "TURB_MESOZ", "0.4",
+                  "ADVECT", "2", "MET_DT_OUT", "0", "DD", "1",
+                  "DD_SUBDOMAINS_ZONAL", "3", "DD_SUBDOMAINS_MERIDIONAL",
+                  "3", "DD_HALOS_SIZE", "4", "T_STOP", "86400",
+                  "DT_MOD", "1200")
+#: tests/helpers/dd_worker.py's case: 36x19x8 met files an hour apart,
+#: 40 parcels, one subdomain a rank, 4 steps of 180 s, exch_cap 16
+DIST_FILES = ("wind_2000_01_01_00.nc", "wind_2000_01_01_01.nc")
+DIST_N, DIST_CAP, DIST_EXCH, DIST_STEPS = 40, 64, 16, 4
+#: seconds a rank process may take (startup included)
+DIST_TIMEOUT = 240
+#: NCCL's error when two ranks of one communicator share a card
+DUPLICATE_GPU = "Duplicate GPU detected"
+
+
+def dd_step_loop(torch, step, tiles, state, t, dt_mod, steps, n=None):
+    """``steps`` DD steps from the state ``[atm, cache]`` at model time
+    ``t``: the state, the time, the ms of each step (host clock,
+    synchronised), the third output's and the lost counts of each step.
+    The list is emptied, so that while the steps run only the step's old
+    and new state are held.  With ``n``, checks after every step that
+    live + lost == n while nothing overflowed."""
+    a, c = state
+    state.clear()
+    ms, third, lost = [], [], []
+    lost_tot = ov_tot = 0
+    for _ in range(steps):
+        t += dt_mod
+        torch.cuda.synchronize()
+        t0 = time.time()
+        a, c, x, lo = step(tiles, a, c, t)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.time() - t0))
+        third.append(int(x.sum()))
+        lost.append(int(lo.sum()))
+        lost_tot += lost[-1]
+        if n is not None:
+            ov_tot += third[-1]
+            if ov_tot == 0 and int(a.np.sum()) + lost_tot != n:
+                raise RuntimeError(f"DD: {int(a.np.sum())} live + "
+                                   f"{lost_tot} lost != {n}")
+    return a, c, t, ms, third, lost
+
+
+def k3_in_dd_step(torch, ddm, step, tiles, state, t, dt_mod):
+    """One more DD step with every K3 call inside it timed by CUDA
+    events (the migration's selections in their order: movers and
+    stayers of each subdomain, then the received parcels of each); the
+    first stayers' call is kept to hold against its plain version.
+    Returns (per-call records, kept inputs, state, time)."""
+    real = ddm.permute_cols
+    calls, kept = [], {}
+
+    def timed(cols32, perm, col64=None, *, plan=None):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(cols32, perm, col64, plan=plan)
+        e1.record()
+        calls.append(dict(events=(e0, e1), n=perm.shape[0],
+                          cols32=len(cols32), col64=col64 is not None,
+                          plan=plan))
+        if len(calls) == 2:                 # subdomain 0's stayers
+            kept.update(cols=list(cols32), perm=perm, col64=col64,
+                        plan=plan, out=out)
+        return out
+
+    ddm.permute_cols = timed
+    try:
+        a, c, t, _, _, _ = dd_step_loop(torch, step, tiles, state, t,
+                                        dt_mod, 1)
+    finally:
+        ddm.permute_cols = real
+    torch.cuda.synchronize()
+    for rec in calls:
+        e0, e1 = rec.pop("events")
+        rec["ms"] = e0.elapsed_time(e1)
+    return calls, kept, a, c, t
+
+
+def nbytes(tensors):
+    return sum(v.numel() * v.element_size() for v in tensors)
+
+
+#: what runs after each K3 selection of the DD step, up to the next stage
+AFTER_K3 = {"movers": "the send fill",
+            "stayers": "copy into the new state (after the last "
+                       "subdomain's, the exchange)",
+            "received": "copy into the new state, refill"}
+
+
+def dd_memory_step(torch, ddm, step, tiles, state, t, dt_mod, exch_cap):
+    """One more DD step with the allocator read at the edges of its
+    stages: each subdomain's physics, each K3 selection (movers, stayers,
+    received) and the code between them.  A stage's record holds the
+    bytes allocated when it starts and the peak inside it.  Returns (the
+    breakdown, state, time)."""
+    import weakref
+
+    from mptrac_tpu_torch.physics import pipeline
+    real_perm, real_phys = ddm.permute_cols, pipeline.run_timestep
+    a, c = state
+    ndev = len(a.np)
+    stages, cur, n_sel, last = [], {}, [0], [lambda: None]
+
+    def mark(label):
+        if cur:
+            stages.append(dict(stage=cur["label"], held=cur["held"],
+                               peak=torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+        cur.update(label=label, held=torch.cuda.memory_allocated())
+
+    def phys(*args, **kw):
+        mark("physics")
+        out = real_phys(*args, **kw)
+        mark("after physics: owner search, masks, mover order")
+        return out
+
+    def perm(cols32, idx, col64=None, *, plan=None):
+        if last[0]() is not idx:            # a selection's first launch
+            n_sel[0] += 1
+            last[0] = weakref.ref(idx)
+        k = n_sel[0] - 1
+        kind = ("received" if k >= 2 * ndev else
+                "stayers" if k % 2 else "movers")
+        mark(f"K3 {kind}")
+        out = real_perm(cols32, idx, col64, plan=plan)
+        mark(f"after K3 {kind}: " + AFTER_K3[kind])
+        return out
+
+    state_bytes = (nbytes([a.time, a.p, a.lon, a.lat, *a.q.values()])
+                   + nbytes([c.uvwp, c.dt, c.iso_var]))
+    k32 = sum(1 for x in [a.p, a.lon, a.lat, *a.q.values()]
+              if x.dtype == torch.float32) + c.uvwp.shape[0]
+    k64 = 1 + sum(1 for x in [a.p, a.lon, a.lat, *a.q.values()]
+                  if x.dtype == torch.float64)
+    del a, c
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
+    ddm.permute_cols, pipeline.run_timestep = perm, phys
+    try:
+        mark("new state and send buffers")
+        a, c, t, _, _, _ = dd_step_loop(torch, step, tiles, state, t,
+                                        dt_mod, 1)
+        mark("end")
+    finally:
+        ddm.permute_cols, pipeline.run_timestep = real_perm, real_phys
+    by = {}
+    for r in stages:
+        b = by.setdefault(r["stage"], dict(n=0, held_max=0, peak_max=0))
+        b["n"] += 1
+        b["held_max"] = max(b["held_max"], r["held"])
+        b["peak_max"] = max(b["peak_max"], r["peak"])
+        b["above_held_max"] = max(b.get("above_held_max", 0),
+                                  r["peak"] - r["held"])
+    return dict(
+        held_at_step_start=held0, state_bytes=state_bytes,
+        send_buffer_bytes=ndev * ndev * exch_cap * (4 * k32 + 8 * k64 + 4),
+        peak=max(r["peak"] for r in stages), by_stage=by), a, c, t
+
+
+def phase_dd_path(torch, n):
+    """bench_dd's case on the card, nothing cut: the flagship (float32,
+    360x181x61, N parcels) without diffusion and decay on the exact path;
+    the plain step (``rate_1``), the DD step of 4 x 2 subdomains in the
+    local group (cap 2N/8, exch_cap cap/8) and the DD step without the
+    exchange, each 2 warm-up + 5 timed steps.  The launch counts are
+    zeroed just before the DD steps and read just after; then one more DD
+    step times every K3 call in it, and one more breaks its peak memory
+    down by stage; the steps without the exchange come last.  While DD
+    steps run, only a step's old and new state are held (the plain
+    step's peak also holds the initial state that the scatter reads)."""
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch.ops import _cuda, slab_interp
+    from mptrac_tpu_torch.parallel import dd as ddm
+    from mptrac_tpu_torch.physics import pipeline
+
+    t0 = time.time()
+    ctl, clim, met01, atm, cache = flagship.make_setup(
+        n, *GRID, extra_args=("TPU_FAST", "0"), device="cuda")
+    ctl = ctl.replace(diffusion=0, tdec_trop=0.0, tdec_strat=0.0)
+    dt_mod = ctl.dt_mod
+    torch.cuda.synchronize()
+    say(f"[dd_path] set-up of {n} parcels in {time.time() - t0:.1f} s")
+
+    # the plain step on the same card (bench_dd's rate_1)
+    torch.cuda.reset_peak_memory_stats()
+    a, c, t, ms1 = atm, cache, 0.0, []
+    for i in range(DD_WARMUP + DD_TIMED):
+        t += dt_mod
+        torch.cuda.synchronize()
+        t1 = time.time()
+        a, c = pipeline.run_timestep(ctl, clim, met01, a, c, t)
+        torch.cuda.synchronize()
+        ms1.append(1e3 * (time.time() - t1))
+    peak1 = torch.cuda.max_memory_allocated()
+    del a, c
+    ms_1 = sum(ms1[DD_WARMUP:]) / DD_TIMED
+    say(f"[dd_path] plain exact step: {ms_1:.3f} ms ({ms1})")
+
+    ctl_dd = ctl.replace(dd=1, dd_subdomains_zonal=DD_ZONAL,
+                         dd_subdomains_meridional=DD_MERID,
+                         dd_halos_size=DD_HALO)
+    dd = ddm.plan_decomposition(ctl_dd, met01, ndev=DD_ZONAL * DD_MERID)
+    ndev = dd.ndev
+    cap = 2 * n // ndev
+    exch_cap = cap // 8
+    t0 = time.time()
+    tiles = ddm.make_tiles(dd, met01)
+    lat_axis = met01.lat[0]
+    a, c = ddm.scatter_parcels(dd, atm, cap, lat_axis)
+    del atm, cache
+    torch.cuda.synchronize()
+    tiles_bytes = nbytes(list(tiles.fields3d.values())
+                         + list(tiles.fields2d.values()))
+    say(f"[dd_path] tiles ({tiles_bytes} B) and scatter in "
+        f"{time.time() - t0:.1f} s; counts {a.np.tolist()}")
+    group = ddm.local_group(ndev, "cuda")
+    step = ddm.make_dd_step(ctl_dd, clim, dd, group, cap, exch_cap,
+                            lat_axis)
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()              # the path starts here
+    state = [a, c]
+    del a, c
+    a, c, t, ms_dd, ovf, lost = dd_step_loop(
+        torch, step, tiles, state, t, dt_mod, DD_WARMUP + DD_TIMED, n=n)
+    counts = dict(_cuda.launch_counts)       # ... and ends here
+    peak_dd = torch.cuda.max_memory_allocated()
+    k3 = {k: counts[f"permute_{k}"] for k in ("count", "gather", "pack",
+                                               "rows")}
+    want = (DD_WARMUP + DD_TIMED) * 3 * ndev
+    if k3["gather"] != want or k3["rows"] or k3["count"]:
+        raise RuntimeError(f"dd_path: K3 launches {k3}, expected {want} "
+                           "selections on the gather path")
+    live, counts_dd = int(a.np.sum()), a.np.tolist()
+    if sum(ovf) or live + sum(lost) != n:
+        raise RuntimeError(f"dd_path: overflow {sum(ovf)}, live {live} + "
+                           f"lost {sum(lost)} != {n}")
+    for name, x in (("lon", a.lon), ("lat", a.lat), ("p", a.p)):
+        if not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"dd_path: non-finite {name}")
+
+    # every K3 call of one more step, and the stayers' call against its
+    # plain version and index_select
+    state = [a, c]
+    del a, c
+    calls, kept, a, c, t = k3_in_dd_step(torch, ddm, step, tiles, state, t,
+                                         dt_mod)
+    cols, perm, col64 = kept["cols"], kept["perm"], kept["col64"]
+    exp32, exp64 = slab_interp.permute_cols_plain(cols, perm, col64)
+    got32, got64 = kept["out"]
+    err = max(max_err(got32, exp32, torch), max_err(got64, exp64, torch))
+    if err != 0.0:
+        raise RuntimeError(f"dd_path: K3 differs from its plain version by "
+                           f"{err}")
+    del exp32, exp64, got32, got64
+    ms_k3 = time_ms(lambda: slab_interp.permute_cols(
+        cols, perm, col64, plan=kept["plan"]), torch, repeats=3)
+    plain_k3 = time_ms(lambda: slab_interp.permute_cols_plain(
+        cols, perm, col64), torch, repeats=3)
+    stacked = torch.stack(cols)
+    lib_k3 = time_ms(lambda: (torch.index_select(stacked, 1, perm),
+                              torch.index_select(col64, 0, perm)),
+                     torch, repeats=3)
+    del stacked
+    nk = perm.shape[0]
+    per = 8 + 8 * len(cols) + 16
+    b_k3 = bound_ms(nk * per, 0)[0]
+    kinds = (["movers", "stayers"] * ndev + ["received"] * ndev)
+    by_kind, n_by_kind = {}, {}
+    for kind, rec in zip(kinds, calls):
+        by_kind.setdefault(kind, []).append(rec["ms"])
+        n_by_kind.setdefault(kind, []).append(rec["n"])
+    k3_stats = dict(
+        launches=k3["gather"] + k3["pack"] + k3["rows"],
+        launches_by_kernel=dict(k3), selections_a_step=3 * ndev,
+        ms=ms_k3, plain_ms=plain_k3, library_ms=lib_k3, bound_ms=b_k3,
+        bound_by="bytes", max_abs_err=err, n=nk, columns_f32=len(cols),
+        columns_f64=1, path=kept["plan"],
+        ms_in_step_by_kind={k: dict(mean=sum(v) / len(v), min=min(v),
+                                    max=max(v), n=len(v))
+                            for k, v in by_kind.items()},
+        ms_in_step_total=sum(r["ms"] for r in calls),
+        n_in_step_by_kind=n_by_kind)
+    del kept, cols, perm, col64
+
+    # the peak's breakdown: one more step with the allocator read at the
+    # edges of its stages
+    state = [a, c]
+    del a, c
+    memory, a, c, t = dd_memory_step(torch, ddm, step, tiles, state, t,
+                                     dt_mod, exch_cap)
+    memory["met01_bytes"] = nbytes(list(met01.fields3d.values())
+                                   + list(met01.fields2d.values()))
+    memory["tiles_bytes"] = tiles_bytes
+    say(json.dumps({"dd_path_memory": memory}))
+
+    # the exchange's and compaction's share: the step without them, last,
+    # on the state the steps above left; its first step counts the
+    # parcels that one step takes out of their subdomains, the later ones
+    # add up (nothing migrates)
+    pstep = ddm.make_dd_step(ctl_dd, clim, dd, group, cap, exch_cap,
+                             lat_axis, exchange=False)
+    state = [a, c]
+    del a, c
+    torch.cuda.reset_peak_memory_stats()
+    _, _, _, ms_px, migrated, _ = dd_step_loop(
+        torch, pstep, tiles, state, t, dt_mod, DD_WARMUP + DD_TIMED)
+    peak_px = torch.cuda.max_memory_allocated()
+
+    ms_full = sum(ms_dd[DD_WARMUP:]) / DD_TIMED
+    ms_phys = sum(ms_px[DD_WARMUP:]) / DD_TIMED
+    stats = dict(
+        n_parcels=n, grid=list(GRID), subdomains=[DD_ZONAL, DD_MERID],
+        halo=DD_HALO, cap=cap, exch_cap=exch_cap,
+        steps_warmup=DD_WARMUP, steps_timed=DD_TIMED,
+        ms_per_step_plain=ms_1, ms_per_step_dd=ms_full,
+        ms_per_step_dd_no_exchange=ms_phys,
+        ms_exchange_and_compaction=ms_full - ms_phys,
+        dd_overhead_one_card=ms_full / ms_1,
+        dd_overhead_note=("all 8 subdomains share one card: the ratio of "
+                          "the DD step to the plain step on the same card, "
+                          "not BASELINE's cross-card scaling"),
+        rate_1=1e3 * n / ms_1, rate_dd=1e3 * n / ms_full,
+        ms_steps_plain=ms1, ms_steps_dd=ms_dd, ms_steps_no_exchange=ms_px,
+        migrated_per_step=migrated[0], outside_owner_by_step=migrated,
+        overflow_per_step=ovf,
+        lost_per_step=lost, live=live,
+        counts=counts_dd, peak_bytes_plain=peak1,
+        peak_bytes_dd=peak_dd, peak_bytes_no_exchange=peak_px,
+        tiles_bytes=tiles_bytes, launches=counts, k3=k3_stats,
+        memory=memory)
+    say(json.dumps({"dd_path": stats}))
+    return k3_stats
+
+
+def dd_case(torch, args, n, seed, device, lat=(-60, 60)):
+    """(ctl, clim, met01, atm) of tests/test_dd.py's kind on ``device``:
+    the tilted wind at 90x46x8, ``n`` parcels from a numpy seed, float64,
+    the parcel index as quantity ``idx``."""
+    import numpy as np
+
+    from mptrac_tpu_torch.climatology import read_clim
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.met.synthetic import make_wind_met
+    from mptrac_tpu_torch.types import Atm, stack_met
+
+    ctl = read_ctl(None, list(args))
+    clim = read_clim(ctl, device=device)
+    met01 = stack_met(
+        make_wind_met(t0=0.0, nx=90, ny=46, nz=8, alpha=40.0,
+                      device=device),
+        make_wind_met(t0=86400.0, nx=90, ny=46, nz=8, alpha=40.0,
+                      device=device))
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+
+    def col(x):
+        return torch.from_numpy(x).to(device)
+
+    lon = col(rng.uniform(0, 360, n))
+    lat_ = col(rng.uniform(*lat, n))
+    p = col(rng.uniform(300, 900, n))
+    atm = Atm(time=torch.zeros(n, dtype=f64, device=device), p=p, lon=lon,
+              lat=lat_, q={"idx": torch.arange(n, dtype=f64, device=device)},
+              np=n)
+    return ctl, clim, met01, atm
+
+
+def phase_dd_vs_cpu(torch):
+    """tests/test_dd.py's case (90x46x8 tilted wind, 200 parcels, DD 4 x 2,
+    halo 4, ``ADVECT 4``, 24 steps of 1200 s, float64) on the card and on
+    the CPU: every slot at card_vs_cpu's float64 tolerances, the counts,
+    overflow and lost exactly; the card's run against the port's plain
+    run on the card (dlon < 1e-9, as test_dd.py).  Then the stress case
+    on the card: 3 x 3 subdomains, 10,000 parcels, diffusion on,
+    conservation every step, overflow detected at exch_cap 1, parcels
+    lost on a regional grid."""
+    import numpy as np
+
+    from mptrac_tpu_torch.parallel import dd as ddm
+    from mptrac_tpu_torch.physics import pipeline
+    from mptrac_tpu_torch.types import Cache
+
+    nsteps, cap, exch = 24, 128, 32
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ctl, clim, met01, atm = dd_case(torch, DD_TEST_ARGS, 200, 5, dev)
+        ctl = ctl.replace(t_start=0.0, t_stop=nsteps * 1200.0)
+        dd = ddm.plan_decomposition(ctl, met01, ndev=8)
+        tiles = ddm.make_tiles(dd, met01)
+        a, c = ddm.scatter_parcels(dd, atm, cap, met01.lat[0])
+        step = ddm.make_dd_step(ctl, clim, dd, ddm.local_group(8, dev),
+                                cap, exch, met01.lat[0])
+        per = []
+        for i in range(1, nsteps + 1):
+            a, c, ov, lo = step(tiles, a, c, i * 1200.0)
+            per.append((a.np.tolist(), ov.tolist(), lo.tolist()))
+        runs[dev] = (a, c, per, dd, (ctl, clim, met01, atm))
+    (ag, cg, pg, dd, inputs), (ac, cc, pc, _, _) = runs["cuda"], runs["cpu"]
+    if pg != pc or cg.rng_ctr != cc.rng_ctr:
+        raise RuntimeError("dd_vs_cpu: counts, overflow, lost or counters "
+                           "differ between card and CPU")
+    errs = {}
+    for name, x, y in (("lon", ag.lon, ac.lon), ("lat", ag.lat, ac.lat),
+                       ("p", ag.p, ac.p), ("uvwp", cg.uvwp, cc.uvwp),
+                       ("time", ag.time, ac.time),
+                       ("idx", ag.q["idx"], ac.q["idx"])):
+        errs[name] = float((x.cpu() - y).abs().max())
+        tol = TOLS_F64.get(name, 0.0)
+        if not errs[name] <= tol:
+            raise RuntimeError(f"dd_vs_cpu: {name} differs by "
+                               f"{errs[name]:.3e} > {tol}")
+    # the card's DD run against the port's plain run on the card
+    ctl, clim, met01, atm = inputs
+    ctl1 = ctl.replace(dd=0)
+    a1, c1 = atm, Cache.zeros(atm.npmax, device="cuda")
+    for i in range(1, nsteps + 1):
+        a1, c1 = pipeline.run_timestep(ctl1, clim, met01, a1, c1,
+                                       i * 1200.0)
+    out = ddm.gather_parcels(dd, ag, cap)
+    if out.np != 200:
+        raise RuntimeError(f"dd_vs_cpu: {out.np} parcels of 200 left")
+    od, o1 = torch.argsort(out.q["idx"]), torch.argsort(a1.q["idx"])
+    dlon = float(((out.lon[od] - a1.lon[o1] + 180) % 360 - 180).abs().max())
+    dlat = float((out.lat[od] - a1.lat[o1]).abs().max())
+    dp = float((out.p[od] - a1.p[o1]).abs().max())
+    if not (dlon < 1e-9 and dlat < 1e-9 and dp < 1e-9):
+        raise RuntimeError(f"dd_vs_cpu: DD against the plain run: dlon "
+                           f"{dlon}, dlat {dlat}, dp {dp}")
+    migrated = int(np.abs(np.diff(np.asarray([s[0] for s in pg]),
+                                  axis=0)).sum())
+
+    # the stress case on the card
+    n = 10_000
+    ctl, clim, met01, atm = dd_case(torch, DD_STRESS_ARGS, n, 11, "cuda",
+                                    lat=(-55, 55))
+    dd = ddm.plan_decomposition(ctl, met01, ndev=9)
+    tiles = ddm.make_tiles(dd, met01)
+    lat_axis = met01.lat[0].cpu().numpy()
+    group = ddm.local_group(9, "cuda")
+    a, c = ddm.scatter_parcels(dd, atm, 4096, lat_axis)
+    step = ddm.make_dd_step(ctl, clim, dd, group, 4096, 1024, lat_axis)
+    lost_tot = 0
+    for i in range(1, 25):
+        a, c, ov, lo = step(tiles, a, c, i * 1200.0)
+        lost_tot += int(lo.sum())
+        if int(ov.sum()) or int(a.np.sum()) + lost_tot != n:
+            raise RuntimeError(f"dd_vs_cpu stress: step {i}: overflow "
+                               f"{int(ov.sum())}, live {int(a.np.sum())} "
+                               f"+ lost {lost_tot} != {n}")
+    if not (a.np > 0).all():
+        raise RuntimeError(f"dd_vs_cpu stress: an empty subdomain {a.np}")
+    tiny = ddm.make_dd_step(ctl, clim, dd, group, 4096, 1, lat_axis)
+    at, _, ov1, lo1 = tiny(tiles, a, c, 25 * 1200.0)
+    dropped = int(ov1.sum())
+    if not (dropped > 0 and int(at.np.sum()) + int(lo1.sum()) + dropped
+            == int(a.np.sum())):
+        raise RuntimeError(f"dd_vs_cpu stress: overflow at exch_cap 1 "
+                           f"{dropped}, live {int(at.np.sum())}")
+    lat_r = lat_axis[np.abs(lat_axis) <= 60.0]
+    dd_reg = ddm.DDGrid(n_zonal=3, n_merid=3, halo=4, nx_glob=dd.nx_glob,
+                        ny_glob=lat_r.size, lon0=dd.lon0, dlon=dd.dlon,
+                        periodic=dd.periodic)
+    rng = np.random.default_rng(11)
+    for _ in range(3):
+        rng.uniform(0, 1, n)                 # the stress case's draws
+    atm2 = atm.replace(lat=torch.from_numpy(rng.uniform(50, 59.5, n)).to(
+        "cuda"))
+    a2, c2 = ddm.scatter_parcels(dd_reg, atm2, 4096, lat_r)
+    step_r = ddm.make_dd_step(ctl, clim, dd_reg, group, 4096, 1024, lat_r)
+    reg_lost = 0
+    for i in range(1, 13):
+        a2, c2, _, lo = step_r(tiles, a2, c2, i * 1200.0)
+        reg_lost += int(lo.sum())
+    if not (reg_lost > 0 and int(a2.np.sum()) + reg_lost == n):
+        raise RuntimeError(f"dd_vs_cpu stress: regional lost {reg_lost}, "
+                           f"live {int(a2.np.sum())}")
+    say(json.dumps({"dd_vs_cpu": {
+        "steps": nsteps, "n_parcels": 200, "max_abs_err": errs,
+        "tolerance": {k: TOLS_F64.get(k, 0.0) for k in errs},
+        "counts_equal": True, "migrations": migrated,
+        "vs_plain_run": {"dlon": dlon, "dlat": dlat, "dp": dp},
+        "stress": {"n_parcels": n, "lost": lost_tot,
+                   "counts": a.np.tolist(), "overflow_exch_cap_1": dropped,
+                   "regional_lost": reg_lost}}}))
+
+
+def dist_inputs(torch, metdir, nsub, ranks, device):
+    """tests/helpers/dd_worker.py's case with ``nsub`` zonal subdomains:
+    (ctl, clim, dd, lat_glob, stacked tiles of ``ranks``, atm, the global
+    met read) on ``device``."""
+    import numpy as np
+
+    from mptrac_tpu_torch.climatology import read_clim
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.met.build import read_met
+    from mptrac_tpu_torch.parallel import dd as ddm
+    from mptrac_tpu_torch.types import Atm, stack_met
+
+    ctl = read_ctl(None, [
+        "NQ", "1", "QNT_NAME[0]", "m", "METBASE", "-", "DT_MOD", "180",
+        "DIFFUSION", "0", "T_STOP", "3600", "MET_TROPO", "0",
+        "MET_CAPE", "0", "MET_PBL", "3", "DD", "1",
+        "DD_SUBDOMAINS_ZONAL", str(nsub), "DD_SUBDOMAINS_MERIDIONAL", "1",
+        "DD_HALOS_SIZE", "2"])
+    clim = read_clim(ctl, device=device)
+    met_glob = read_met(os.path.join(metdir, DIST_FILES[0]), ctl,
+                        device=device)
+    dd = ddm.plan_decomposition(ctl, met_glob, ndev=nsub)
+    lat_glob = met_glob.lat.cpu().numpy()
+    pairs = []
+    for r in ranks:
+        t = [ddm.read_met_tile(os.path.join(metdir, f), ctl, dd, r, lat_glob,
+                               clim, device=device) for f in DIST_FILES]
+        pairs.append(stack_met(t[0], t[1]))
+    rng = np.random.default_rng(7)
+    n = DIST_N
+    cols = [torch.from_numpy(rng.uniform(lo, hi, n)).to(device)
+            for lo, hi in ((-170, 170), (-60, 60), (300, 800))]
+    f64 = torch.float64
+    atm = Atm(time=torch.zeros(n, dtype=f64, device=device), p=cols[2],
+              lon=cols[0], lat=cols[1],
+              q={"m": torch.ones(n, dtype=f64, device=device)}, np=n)
+    return ctl, clim, dd, lat_glob, ddm.stack_tiles(pairs), atm, met_glob
+
+
+def dist_blocks(a, c):
+    import numpy as np
+    out = {k: getattr(a, k).cpu().numpy() for k in ("time", "p", "lon",
+                                                    "lat")}
+    out["q_m"] = a.q["m"].cpu().numpy()
+    out["uvwp"] = c.uvwp.cpu().numpy()
+    out["np"] = np.asarray(a.np)
+    out["rng_ctr"] = np.asarray(c.rng_ctr, np.uint64)
+    return out
+
+
+def dd_rank_main(rank, world, port, metdir, backend):
+    """One rank of ``dd_dist`` (``chip_smoke.py --dd-rank``): joins the
+    process group on ``backend``, holds one subdomain on CUDA device
+    ``rank`` modulo the devices present, checks ``read_met_shared``
+    against ``read_met``, steps its block and writes it to
+    ``metdir/rank<rank>_<backend>_<world>.npz``."""
+    import numpy as np
+    import torch
+
+    from mptrac_tpu_torch.parallel import dd as ddm
+    from mptrac_tpu_torch.parallel import multihost
+
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    rt = multihost.init_distributed(f"localhost:{port}", world, rank,
+                                    local_devices=[dev], backend=backend)
+    try:
+        ctl, clim, dd, lat_glob, tiles, atm, met_glob = dist_inputs(
+            torch, metdir, world, [rank], dev)
+        shared = multihost.read_met_shared(
+            os.path.join(metdir, DIST_FILES[0]), ctl, rt)
+        same = dict(rtol=0, atol=0, equal_nan=True)
+        for k in met_glob.fields3d:
+            torch.testing.assert_close(shared.fields3d[k],
+                                       met_glob.fields3d[k], **same)
+        for k in met_glob.fields2d:
+            torch.testing.assert_close(shared.fields2d[k],
+                                       met_glob.fields2d[k], **same)
+        a, c = ddm.scatter_parcels(dd, atm, DIST_CAP, lat_glob)
+        a, c = ddm.subdomain_block(a, c, DIST_CAP, [rank])
+        step = ddm.make_dd_step(ctl, clim, dd, multihost.global_mesh(rt),
+                                DIST_CAP, DIST_EXCH, lat_glob)
+        lost = ovf = 0
+        for i in range(DIST_STEPS):
+            a, c, ov, lo = step(tiles, a, c, (i + 1) * 180.0)
+            lost += int(lo.sum())
+            ovf += int(ov.sum())
+        total = multihost.allsum_scalar(float(a.np.sum()) + lost, rt)
+        if multihost.allsum_scalar(float(ovf), rt) != 0 or total != DIST_N:
+            raise RuntimeError(f"rank {rank}: overflow, or {total} parcels")
+        np.savez(os.path.join(metdir, f"rank{rank}_{backend}_{world}.npz"),
+                 **dist_blocks(a, c))
+    finally:
+        torch.distributed.destroy_process_group()
+    print(f"OK rank={rank} backend={rt.backend}", flush=True)
+
+
+def run_ranks(world, metdir, backend):
+    """``world`` rank processes of this script on one process group:
+    (all ended with 0, the last lines of each one's errors, each one's
+    whole standard error)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, LOGLEV="0")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dd-rank", str(r),
+         str(world), str(port), metdir, backend], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    tails, errs, ok = [], [], True
+    t_end = time.time() + DIST_TIMEOUT
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(
+                    timeout=max(1.0, t_end - time.time()))
+            except subprocess.TimeoutExpired:
+                ok = False
+                tails.append("timed out")
+                continue
+            done = p.returncode == 0 and "OK rank=" in out
+            ok = ok and done
+            errs.append(err or "")
+            lines = [x for x in (err or "").strip().splitlines()
+                     if "Warning" not in x and "nc.close" not in x]
+            tails.append("" if done else " | ".join(lines[-4:])[-600:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return ok, tails, errs
+
+
+def phase_dd_dist(torch):
+    """The process-group route on the card, on dd_worker.py's case: one
+    NCCL rank per card present, one subdomain each; the ranks' blocks
+    against the local group's on the card, bit for bit.  Then two ranks on
+    one card: NCCL first; where it refuses them with its duplicate-GPU
+    error (and only then), gloo with the ranks' CUDA buffers; each
+    attempt's outcome and the backend that carried it are printed, and
+    the phase fails unless one carried it equal to the local group."""
+    import numpy as np
+
+    from mptrac_tpu_torch.met.synthetic import make_wind_met
+    from mptrac_tpu_torch.met.write_nc import write_met_nc
+    from mptrac_tpu_torch.parallel import dd as ddm
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dd_")
+    try:
+        for t0, name in zip((0.0, 3600.0), DIST_FILES):
+            write_met_nc(os.path.join(tmp, name),
+                         make_wind_met(t0=t0, nx=36, ny=19, nz=8,
+                                       device="cpu"),
+                         drop_wrap_column=True)
+
+        def local(world):
+            ctl, clim, dd, lat_glob, tiles, atm, _ = dist_inputs(
+                torch, tmp, world, range(world), "cuda")
+            a, c = ddm.scatter_parcels(dd, atm, DIST_CAP, lat_glob)
+            step = ddm.make_dd_step(ctl, clim, dd,
+                                    ddm.local_group(world, "cuda"),
+                                    DIST_CAP, DIST_EXCH, lat_glob)
+            for i in range(DIST_STEPS):
+                a, c, _, _ = step(tiles, a, c, (i + 1) * 180.0)
+            return dist_blocks(a, c)
+
+        def held(world, backend):
+            want = local(world)
+            got = [dict(np.load(os.path.join(
+                tmp, f"rank{r}_{backend}_{world}.npz"))) for r in range(world)]
+            for k, v in want.items():
+                joined = np.concatenate([g[k] for g in got], axis=-1)
+                if not np.array_equal(joined, v,
+                                      equal_nan=v.dtype.kind == "f"):
+                    raise RuntimeError(f"dd_dist ({backend}, {world} "
+                                       f"ranks): {k} differs from the local "
+                                       "group")
+            return int(want["np"].sum())
+
+        report = {}
+        world = torch.cuda.device_count()
+        t0 = time.time()
+        ok, tails, _ = run_ranks(world, tmp, "nccl")
+        if not ok:
+            raise RuntimeError(f"dd_dist: {world} NCCL rank(s) failed: "
+                               f"{tails}")
+        report["one_rank_per_card"] = dict(
+            ranks=world, backend="nccl", live=held(world, "nccl"),
+            seconds=time.time() - t0, equal_to_local_group=True)
+        say(f"[dd_dist] {world} rank(s) over NCCL, one a card: equal to "
+            "the local group bit for bit")
+        two = {}
+        for backend in ("nccl", "gloo"):
+            t0 = time.time()
+            ok, tails, errs = run_ranks(2, tmp, backend)
+            two[backend] = dict(ok=ok, seconds=time.time() - t0,
+                                errors=[t for t in tails if t])
+            say(f"[dd_dist] two ranks on one card over {backend}: "
+                + ("carried the exchange" if ok else f"failed: {tails}"))
+            if ok:
+                two[backend]["live"] = held(2, backend)
+                two[backend]["equal_to_local_group"] = True
+                two["carried_by"] = backend
+                break
+            # only NCCL's refusal of two ranks on one card passes on to
+            # gloo; any other failure is the route's own
+            if backend != "nccl" or not any(DUPLICATE_GPU in e
+                                             for e in errs):
+                raise RuntimeError(f"dd_dist: two ranks over {backend} "
+                                   f"failed: {tails}")
+            two[backend]["refused"] = DUPLICATE_GPU
+        if "carried_by" not in two:
+            raise RuntimeError("dd_dist: no backend carried two ranks")
+        report["two_ranks_one_card"] = two
+        say(json.dumps({"dd_dist": report}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--np", type=int, default=N_FLAGSHIP,
@@ -3529,7 +4275,17 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="profile two extra steps of each path: time by "
                     "module and by kernel")
+    ap.add_argument("--dd-rank", nargs=5, metavar=("RANK", "WORLD", "PORT",
+                                                  "DIR", "BACKEND"),
+                    help="run one rank of the dd_dist phase (the phase "
+                    "starts these itself)")
     args = ap.parse_args()
+    if args.dd_rank:
+        root = os.path.dirname(os.path.abspath(__file__))
+        sys.path.insert(0, root)
+        r, w, port, metdir, backend = args.dd_rank
+        dd_rank_main(int(r), int(w), port, metdir, backend)
+        return 0
 
     import torch
     if not torch.cuda.is_available():
@@ -3602,6 +4358,12 @@ def main():
     phase("zeta_path", phase_zeta_path, torch, args.np)
     phase("golden_zeta", phase_golden_zeta, torch)
     kernels += phase("probes", phase_probes, torch, args.np)
+    k3_dd = phase("dd_path", phase_dd_path, torch, args.np)
+    for k in kernels:
+        if k["name"] == "permute_cols":
+            k["dd_path"] = k3_dd
+    phase("dd_vs_cpu", phase_dd_vs_cpu, torch)
+    phase("dd_dist", phase_dd_dist, torch)
     say(json.dumps({"phase_seconds": seconds}))
     say(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -57,16 +57,23 @@ def check_met_type(ctl: Ctl) -> None:
 
 
 def read_met(filename: str, ctl: Ctl, clim=None, device="cuda",
-             timings: Dict[str, float] = None) -> Met:
+             timings: Dict[str, float] = None, sel=None) -> Met:
     """Read one meteo file and run the preprocessing chain
     (reference mptrac_read_met, c:7436).  ``timings``, when given, gets
     the seconds of the stages added: ``read``, ``preprocess`` and
     ``upload`` for netCDF and GRIB files (``read`` includes the GRIB bit
-    unpacking), ``bin_io.STAGES`` for the binary containers."""
+    unpacking), ``bin_io.STAGES`` for the binary containers.  ``sel``
+    (``parallel.dd.tile_selection``) restricts a netCDF read to a
+    horizontal hyperslab, and the chain then runs on that tile only;
+    other formats have no hyperslab read and raise."""
     from mptrac_tpu_torch.met import process
 
     dev = resolve_device(device)
     check_met_type(ctl)
+    if sel is not None and ctl.met_type != 0:
+        raise NotImplementedError(
+            f"read_met: a hyperslab (sel) of MET_TYPE {ctl.met_type}; only "
+            "netCDF files (MET_TYPE 0) are read by tile")
     if ctl.met_type in BIN_TYPES:
         # Binary containers store fully preprocessed fields
         # (reference c:7481 applies the chain to nc/grib only)
@@ -79,7 +86,7 @@ def read_met(filename: str, ctl: Ctl, clim=None, device="cuda",
     t0 = _time.perf_counter()
     if ctl.met_type == 0:
         from mptrac_tpu_torch.met.read_nc import read_met_nc
-        raw = read_met_nc(filename, ctl)
+        raw = read_met_nc(filename, ctl, sel=sel)
     else:
         from mptrac_tpu_torch.met.read_grib import read_met_grib
         raw = read_met_grib(filename, ctl)

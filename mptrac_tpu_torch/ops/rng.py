@@ -94,58 +94,77 @@ def squares_uniform(ctr: int, n: int, device="cuda"
     return u, (ctr + n + 1) & _M64
 
 
-def squares_normal(ctr: int, n: int, device="cuda"
+def squares_normal(ctr: int, n: int, device="cuda", start: int = 0
                    ) -> Tuple[torch.Tensor, int]:
     """``n`` standard-normal doubles via the reference's Box-Muller
     transform (c:5632-5648): pairs (r cos phi, r sin phi) with phi
-    evaluated in single precision (``cosf((float) phi)``)."""
-    u, ctr = squares_uniform(ctr, n, device)
-    m = (n + 1) // 2
-    evens = u[0:n:2]
-    odds = u[1:n + 1:2]
+    evaluated in single precision (``cosf((float) phi)``).  ``start``
+    > 0 gives the normals ``start .. start+n-1`` of a longer draw (each
+    pair is a function of its two counters alone); the returned counter
+    is then that of a draw of ``n`` from ``ctr``."""
+    m0 = start // 2
+    m = (start + n + 1) // 2 - m0             # pairs that cover the range
+    u = _uniform_at(ctr, 2 * m0, 2 * m, device)
+    evens = u[0::2]
+    odds = u[1::2]
     r = torch.sqrt(-2.0 * torch.log(evens))
     phif = (2.0 * math.pi * odds).to(torch.float32)
     out_e = r * torch.cos(phif).to(torch.float64)
     out_o = r * torch.sin(phif).to(torch.float64)
-    out = torch.stack([out_e[:m], out_o[:m]], dim=1).reshape(-1)[:n]
-    return out, ctr
+    k = start - 2 * m0
+    out = torch.stack([out_e, out_o], dim=1).reshape(-1)[k:k + n]
+    return out, (ctr + n + 1) & _M64
 
 
-def squares_uniform_f32(ctr: int, n: int, device="cuda"
+def _uniform_at(ctr: int, start: int, count: int, device):
+    """The uniform doubles of counters ctr+start .. ctr+start+count-1
+    (squares_uniform's values)."""
+    hi32, lo32 = _squares_core(_counters(ctr, start, count, device))
+    return (hi32.to(torch.float64) * 4294967296.0
+            + lo32.to(torch.float64)) * (0.5 ** 64)
+
+
+def squares_uniform_f32(ctr: int, n: int, device="cuda", start: int = 0
                         ) -> Tuple[torch.Tensor, int]:
     """``n + 1`` float32 uniforms from the same Squares bit stream (fp32
     compute mode): the top 24 bits of each 64-bit draw, scaled by
     2^-24.  Same counter advance as ``squares_uniform``.  The chain runs
     in passes of ``RNG_CHUNK`` draws, which bounds its int64
-    temporaries."""
+    temporaries.  ``start`` shifts the counters (a slice of a longer
+    draw)."""
     dev = torch.device(device)
     out = torch.empty(n + 1, dtype=torch.float32, device=dev)
     for s in range(0, n + 1, RNG_CHUNK):
         cnt = min(RNG_CHUNK, n + 1 - s)
-        hi, _ = _squares_core(_counters(ctr, s, cnt, dev))
+        hi, _ = _squares_core(_counters(ctr, start + s, cnt, dev))
         torch.mul((hi >> 8).to(torch.float32), 0.5 ** 24,
                   out=out[s:s + cnt])
         del hi
     return out, (ctr + n + 1) & _M64
 
 
-def squares_normal_f32(ctr: int, n: int, device="cuda"
+def squares_normal_f32(ctr: int, n: int, device="cuda", start: int = 0
                        ) -> Tuple[torch.Tensor, int]:
     """``n`` float32 Box-Muller normals over the float32 uniform stream
-    (fp32 compute mode; the pairing of ``squares_normal``)."""
-    u, ctr = squares_uniform_f32(ctr, n, device)
-    m = (n + 1) // 2
-    evens = torch.clamp(u[0:n:2], min=0.5 ** 25)
-    odds = u[1:n + 1:2]
+    (fp32 compute mode; the pairing of ``squares_normal``).  ``start``
+    gives the normals ``start .. start+n-1`` of a longer draw, as
+    ``squares_normal``."""
+    m0 = start // 2
+    m = (start + n + 1) // 2 - m0             # pairs that cover the range
+    u, _ = squares_uniform_f32(ctr, 2 * m - 1, device, start=2 * m0)
+    evens = torch.clamp(u[0::2], min=0.5 ** 25)
+    odds = u[1::2]
     r = torch.sqrt(-2.0 * torch.log(evens))
     phi = (2.0 * 3.141592653589793) * odds   # the factor rounds to float32
     out_e = r * torch.cos(phi)
     out_o = r * torch.sin(phi)
-    out = torch.stack([out_e[:m], out_o[:m]], dim=1).reshape(-1)[:n]
-    return out, ctr
+    k = start - 2 * m0
+    out = torch.stack([out_e, out_o], dim=1).reshape(-1)[k:k + n]
+    return out, (ctr + n + 1) & _M64
 
 
-def squares_normal3_f32(ctr: int, n: int, device="cuda"
+def squares_normal3_f32(ctr: int, n: int, device="cuda",
+                        part: Tuple[int, int] = None
                         ) -> Tuple[torch.Tensor, int]:
     """Three component-major float32 normal streams from the Squares
     counter (fp32 compute mode).
@@ -155,22 +174,25 @@ def squares_normal3_f32(ctr: int, n: int, device="cuda"
     bits, the phase from the low 24 bits of the low word.  Counter
     advance stays ``3n + 1`` like the reference.  The integer chain is
     bit-identical to the JAX package's; only the transcendentals may
-    differ by ulps between math libraries.
+    differ by ulps between math libraries.  ``part`` = (first, total):
+    the parcels first .. first+n-1 of a draw for ``total`` parcels.
     """
     dev = torch.device(device)
+    first, total = (0, n) if part is None else part
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
     two_pi = 2.0 * 3.141592653589793     # rounds to float32 in the product
     for c in range(3):
         for s in range(0, n, RNG_CHUNK):
             cnt = min(RNG_CHUNK, n - s)
-            hi, lo = _squares_core(_counters(ctr, c * n + s, cnt, dev))
+            hi, lo = _squares_core(_counters(ctr, c * total + first + s,
+                                             cnt, dev))
             u_r = torch.clamp((hi >> 8).to(torch.float32) * (0.5 ** 24),
                               min=0.5 ** 25)
             u_phi = (lo >> 8).to(torch.float32) * (0.5 ** 24)
             del hi, lo
             r = torch.sqrt(-2.0 * torch.log(u_r))
             torch.mul(r, torch.cos(two_pi * u_phi), out=out[c, s:s + cnt])
-    return out, (ctr + 3 * n + 1) & _M64
+    return out, (ctr + 3 * total + 1) & _M64
 
 
 #: rotation distances of threefry2x32's two groups of four rounds
@@ -224,12 +246,14 @@ def _bits_to_unit(bits, dtype):
 
 
 def threefry_draw(ctr: int, n: int, shape, normal: bool, dtype,
-                  device="cuda") -> torch.Tensor:
+                  device="cuda", ranges=None) -> torch.Tensor:
     """``jax.random.uniform`` (``normal`` False) or ``jax.random.normal``
     of ``shape`` (``n`` elements) under the key of ``ctr``, in passes of
     ``RNG_CHUNK`` elements.  float32 takes 32-bit draws, float64 64-bit
     ones.  The normal is ``sqrt(2) * erfinv(u)`` with ``u`` uniform on
-    ``(nextafter(-1, 0), 1)``, as JAX's ``_normal_real``."""
+    ``(nextafter(-1, 0), 1)``, as JAX's ``_normal_real``.  ``ranges``,
+    (first, count) pairs of flat indices that add up to ``n``, take those
+    elements of a larger draw, in order (one shard's slice)."""
     dev = torch.device(device)
     key = threefry_key(ctr)
     width = 32 if dtype == torch.float32 else 64
@@ -239,14 +263,19 @@ def threefry_draw(ctr: int, n: int, shape, normal: bool, dtype,
     # (1 - lo) rounds to 2.0 in both precisions, so u = 2 f + lo exactly
     scale = float(np.array(1.0, _NP[dtype]) - np.array(lo, _NP[dtype]))
     sqrt2 = torch.tensor(math.sqrt(2.0), dtype=dtype, device=dev)
-    for s in range(0, n, RNG_CHUNK):
-        cnt = min(RNG_CHUNK, n - s)
-        f = _bits_to_unit(threefry_bits(key, s, cnt, width, dev), dtype)
-        if normal:
-            u = torch.clamp(f * scale + lo, min=lo)
-            torch.mul(sqrt2, torch.special.erfinv(u), out=out[s:s + cnt])
-        else:
-            torch.clamp(f, min=0.0, out=out[s:s + cnt])
+    o = 0
+    for first, count in ((0, n),) if ranges is None else ranges:
+        for s in range(0, count, RNG_CHUNK):
+            cnt = min(RNG_CHUNK, count - s)
+            f = _bits_to_unit(threefry_bits(key, first + s, cnt, width, dev),
+                              dtype)
+            if normal:
+                u = torch.clamp(f * scale + lo, min=lo)
+                torch.mul(sqrt2, torch.special.erfinv(u),
+                          out=out[o:o + cnt])
+            else:
+                torch.clamp(f, min=0.0, out=out[o:o + cnt])
+            o += cnt
     return out.reshape(shape)
 
 
@@ -254,31 +283,34 @@ _NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 def module_rng(ctl_rng_type: int, ctr: int, n: int, method: int,
-               dtype=torch.float64, device="cuda"
+               dtype=torch.float64, device="cuda", part=None
                ) -> Tuple[torch.Tensor, int]:
     """``n`` uniform (``method`` 0) or standard-normal (1) draws and the
     advanced counter, as the reference ``module_rng`` (c:5535) draws
     them with the Squares generator.  float32 uses the float32
     formulations (``squares_uniform_f32``, ``squares_normal_f32``),
     float64 the reference's stream.  RNG_TYPE 2 draws from threefry
-    (``threefry_draw``) and advances the counter by ``n + 1`` too."""
+    (``threefry_draw``) and advances the counter by ``n + 1`` too.
+    ``part`` = (first, total) (``Cache.rng_part``): the draws first ..
+    first+n-1 of a draw of ``total``, and the counter of that draw."""
+    first, total = (0, n) if part is None else part
+    adv = (ctr + total + 1) & _M64
     if ctl_rng_type not in (0, 1):
-        return (threefry_draw(ctr, n, (n,), method != 0, dtype, device),
-                (ctr + n + 1) & _M64)
+        return (threefry_draw(ctr, n, (n,), method != 0, dtype, device,
+                              ranges=[(first, n)]), adv)
     if dtype == torch.float32:
         if method == 0:
-            u, ctr = squares_uniform_f32(ctr, n, device)
-            return u[:n], ctr
-        return squares_normal_f32(ctr, n, device)
+            u, _ = squares_uniform_f32(ctr, n, device, start=first)
+            return u[:n], adv
+        return squares_normal_f32(ctr, n, device, start=first)[0], adv
     if method == 0:
-        u, ctr = squares_uniform(ctr, n, device)
-        return u[:n].to(dtype), ctr
-    rs, ctr = squares_normal(ctr, n, device)
-    return rs.to(dtype), ctr
+        return _uniform_at(ctr, first, n, device).to(dtype), adv
+    rs, _ = squares_normal(ctr, n, device, start=first)
+    return rs.to(dtype), adv
 
 
 def module_rng3(ctl_rng_type: int, ctr: int, n: int,
-                dtype=torch.float64, device="cuda"
+                dtype=torch.float64, device="cuda", part=None
                 ) -> Tuple[torch.Tensor, int]:
     """Draw 3 standard normals per parcel as a component-major [3, n]
     tensor.
@@ -288,11 +320,16 @@ def module_rng3(ctl_rng_type: int, ctr: int, n: int,
     c:5632-5648) and transposes; f32 uses the contiguous formulation
     (squares_normal3_f32).  RNG_TYPE 2: JAX's threefry normals of shape
     [3, n] (``threefry_draw``).  The counter advances by ``3n + 1``
-    either way."""
+    either way.  ``part`` = (first, total) (``Cache.rng_part``): the
+    columns first .. first+n-1 of the [3, total] draw, and the counter
+    advanced by ``3 total + 1``."""
+    first, total = (0, n) if part is None else part
+    adv = (ctr + 3 * total + 1) & _M64
     if ctl_rng_type not in (0, 1):
-        return (threefry_draw(ctr, 3 * n, (3, n), True, dtype, device),
-                (ctr + 3 * n + 1) & _M64)
+        return (threefry_draw(ctr, 3 * n, (3, n), True, dtype, device,
+                              ranges=[(c * total + first, n)
+                                      for c in range(3)]), adv)
     if dtype == torch.float32:
-        return squares_normal3_f32(ctr, n, device)
-    rs, ctr = squares_normal(ctr, 3 * n, device)
-    return rs.to(dtype).reshape(n, 3).T, ctr
+        return squares_normal3_f32(ctr, n, device, part=(first, total))
+    rs, _ = squares_normal(ctr, 3 * n, device, start=3 * first)
+    return rs.to(dtype).reshape(n, 3).T, adv

@@ -231,13 +231,18 @@ def _permute_cuda(cols32, perm, col64, plan):
     if len(cols32) > PERMUTE_MAX_COLS:
         raise ValueError(f"permute_cols: {len(cols32)} float32 columns, "
                          f"at most {PERMUTE_MAX_COLS} per launch")
+    m = (cols32[0] if cols32 else col64 if col64 is not None
+         else perm).shape[0]                   # the columns' length
     for k, c in enumerate(cols32):
-        _cuda.require_f32_cuda(f"permute_cols column {k}", c, (n,))
+        _cuda.require_f32_cuda(f"permute_cols column {k}", c, (m,))
     if col64 is not None and not (
             col64.is_cuda and col64.dtype == torch.float64
-            and col64.is_contiguous() and tuple(col64.shape) == (n,)):
+            and col64.is_contiguous() and tuple(col64.shape) == (m,)):
         raise ValueError("permute_cols col64: expected a contiguous "
-                         f"float64 CUDA tensor of shape ({n},)")
+                         f"float64 CUDA tensor of shape ({m},)")
+    if m != n and plan != "gather":
+        raise ValueError(f"permute_cols: {n} indices into columns of {m}: "
+                         "only the gather path takes a selection")
     lib = _cuda.load()
     dev = perm.device
     k = len(cols32)
@@ -275,14 +280,16 @@ def permute_cols(cols32: Sequence[torch.Tensor], perm,
                  col64: Optional[torch.Tensor] = None, *, plan=None):
     """``(stack(cols32)[:, perm], col64[perm])``.
 
-    cols32: float32 [n] columns; col64: an optional float64 [n] column
+    cols32: float32 [m] columns; col64: an optional float64 [m] column
     (the parcel time); perm: int64 [n].  Exact for any permutation.
     Returns the permuted float32 columns as one [k, n] tensor and the
     permuted float64 column (or None).  ``plan``, ``"rows"`` or
     ``"gather"``, is the kernel's path; on the card, when it is None, a
     count pass and one read back of its counter pick it (permute_plan).
     A caller that permutes several groups of columns by one ``perm``
-    plans once and passes the plan to each call."""
+    plans once and passes the plan to each call.  With the gather path
+    ``perm`` may also select (n != m): any int64 indices into the
+    columns."""
     if plan not in (None, "rows", "gather"):
         raise ValueError(f"permute_cols: unknown plan {plan!r}")
     if perm.is_cuda:

@@ -19,7 +19,8 @@ from mptrac_tpu_torch.types import Atm, Cache, Met
 
 def module_convection(ctl: Ctl, cache: Cache, met01: Met, atm: Atm):
     rs, ctr = module_rng(ctl.rng_type, cache.rng_ctr, atm.npmax, 0,
-                         dtype=atm.lon.dtype, device=atm.lon.device)
+                         dtype=atm.lon.dtype, device=atm.lon.device,
+                         part=cache.rng_part)
     cache = cache.replace(rng_ctr=ctr)
 
     active = (cache.dt != 0.0) & atm.mask

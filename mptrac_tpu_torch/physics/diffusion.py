@@ -50,7 +50,8 @@ def module_diff_turb(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
     from the exact ``interp_time_2d``."""
     n = atm.npmax
     rs, ctr = module_rng3(ctl.rng_type, cache.rng_ctr, n,
-                          dtype=atm.lon.dtype, device=atm.lon.device)
+                          dtype=atm.lon.dtype, device=atm.lon.device,
+                          part=cache.rng_part)
     cache = cache.replace(rng_ctr=ctr)
 
     dt = cache.dt
@@ -170,7 +171,8 @@ def module_diff_meso(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
     does in this module."""
     n = atm.npmax
     rs, ctr = module_rng3(ctl.rng_type, cache.rng_ctr, n,
-                          dtype=atm.lon.dtype, device=atm.lon.device)
+                          dtype=atm.lon.dtype, device=atm.lon.device,
+                          part=cache.rng_part)
     cache = cache.replace(rng_ctr=ctr)
 
     dt = cache.dt

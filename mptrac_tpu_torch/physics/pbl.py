@@ -241,7 +241,8 @@ def module_diff_pbl(ctl: Ctl, cache: Cache, met01: Met, atm: Atm):
     normals (counter + 3n + 1) and moves the active parcels."""
     n = atm.npmax
     rs, ctr = module_rng3(ctl.rng_type, cache.rng_ctr, n,
-                          dtype=atm.lon.dtype, device=atm.lon.device)
+                          dtype=atm.lon.dtype, device=atm.lon.device,
+                          part=cache.rng_part)
     cache = cache.replace(rng_ctr=ctr)
     mask = atm.mask
     lon, lat = torch.empty_like(atm.lon), torch.empty_like(atm.lat)

@@ -32,9 +32,9 @@ def module_timesteps(ctl: Ctl, cache: Cache, met0: Met, atm: Atm,
         outside = ((atm.lon <= lon[0]) | (atm.lon >= lon[-1])
                    | (atm.lat <= latmin) | (atm.lat >= latmax))
         dt = torch.where(local & outside, 0.0, dt)
-    else:
-        raise NotImplementedError(
-            "module_timesteps: domain decomposition (DD) is not ported")
+    # DD mode: parcels are in their owner's tile by construction
+    # (parallel.dd); the reference instead freezes on
+    # current_subdomain == -1 (c:5847)
     dt = torch.where(atm.mask, dt, 0.0)
     # keep the cache dtype (fp32 mode stores dt in float32; the
     # t - time difference itself is small enough for float32)

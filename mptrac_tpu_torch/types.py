@@ -95,6 +95,11 @@ class Cache:
     served_min: Optional[float] = None   # min served fraction since
     #   the last sort; every parcel is served here, so it stays 1.0
     #   (kept so the run loop keeps its shape)
+    #: (first parcel, parcels of the global draw) when this cache holds
+    #: one shard of a sharded state (parallel.mesh): the random draws are
+    #: that shard's slice of the global draw, and the counter advances by
+    #: the global draw; None for a whole state
+    rng_part: Optional[Tuple[int, int]] = None
 
     @staticmethod
     def zeros(npmax: int, dtype=torch.float64, iso_nmax: int = 1,
@@ -115,6 +120,44 @@ class Cache:
 
     def replace(self, **kw) -> "Cache":
         return dataclasses.replace(self, **kw)
+
+
+# Cache field categories (the JAX package's types.py:130-160): every
+# placement over Cache (parallel.mesh, parallel.dd) derives from them, so
+# a new field must join exactly one category or this module fails to
+# import.
+#: [npmax] per-particle tensors (split over the particle axis)
+CACHE_PARTICLE_FIELDS = ("dt", "iso_var")
+#: [k, npmax] per-particle tensors with a leading non-particle axis
+CACHE_PARTICLE2D_FIELDS = ("uvwp",)
+#: one value a subdomain under the domain decomposition (host values)
+CACHE_DEVICE_SCALAR_FIELDS = ("rng_ctr", "served_min")
+#: small global tables and counts, the same everywhere
+CACHE_GLOBAL_FIELDS = ("iso_ps", "iso_ts", "iso_n")
+#: the port's own: which slice of the global draw a shard takes
+CACHE_SHARD_FIELDS = ("rng_part",)
+
+_CACHE_ALL = (set(CACHE_PARTICLE_FIELDS) | set(CACHE_PARTICLE2D_FIELDS)
+              | set(CACHE_DEVICE_SCALAR_FIELDS) | set(CACHE_GLOBAL_FIELDS)
+              | set(CACHE_SHARD_FIELDS))
+if _CACHE_ALL != {f.name for f in dataclasses.fields(Cache)}:
+    raise ImportError(
+        "Cache field categories out of sync with the dataclass: "
+        f"{_CACHE_ALL ^ {f.name for f in dataclasses.fields(Cache)}}")
+
+
+def cache_field_tree(particle, particle2d, device_scalar, glob,
+                     shard=None) -> Cache:
+    """A Cache-shaped tree with one value per field category (above)."""
+    kw = {}
+    for names, value in ((CACHE_PARTICLE_FIELDS, particle),
+                         (CACHE_PARTICLE2D_FIELDS, particle2d),
+                         (CACHE_DEVICE_SCALAR_FIELDS, device_scalar),
+                         (CACHE_GLOBAL_FIELDS, glob),
+                         (CACHE_SHARD_FIELDS, shard)):
+        for k in names:
+            kw[k] = value
+    return Cache(**kw)
 
 
 #: 3-D fields of a meteo snapshot on pressure levels

@@ -553,6 +553,23 @@ def test_permute_kernel_bit_exact_column_counts(gpu, ncols, with64):
                 _assert_k3_exact(cols, perm, col64, plan)
 
 
+@pytest.mark.parametrize("ncols", [0, 9])
+def test_permute_kernel_selection_on_gather_path(gpu, ncols):
+    """The gather path takes indices that select (fewer than the columns,
+    in runs or at random, none at all) and equals the plain gather bit
+    for bit; the row path refuses a selection."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    m = 5 * K3_BLOCK + 3
+    cols, col64 = _k3_columns(m, ncols, True, gen)
+    runs = torch.nonzero(torch.rand(m, device="cuda", generator=gen)
+                         < 0.3).flatten()
+    rand = torch.randint(0, m, (777,), device="cuda", generator=gen)
+    for idx in (runs, rand, runs[:0]):
+        _assert_k3_exact(cols, idx, col64, "gather")
+    with pytest.raises(ValueError, match="selection"):
+        slab_interp.permute_cols(cols, runs, col64, plan="rows")
+
+
 def test_permute_count_matches_plain(gpu):
     """The count pass on the card equals its plain version; a random or
     banded permutation plans the row path, the identity and a drifted
@@ -715,3 +732,109 @@ def test_interp_4d_zeta_card_against_cpu(gpu):
                                      lat)
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
                                    atol=0, equal_nan=True)
+
+
+# ------------------------------------------------------ the parallel layer
+
+def _dd_case(device, dtype=torch.float64, n=600):
+    """tests/test_dd.py's kind of case: the tilted wind at 90x46x8, DD
+    4 x 2, halo 4, ``n`` parcels from a numpy seed, on ``device``."""
+    from mptrac_tpu_torch.climatology import read_clim
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.met.synthetic import make_wind_met
+    from mptrac_tpu_torch.types import Atm, astype_state, stack_met
+    ctl = read_ctl(None, [
+        "NQ", "1", "QNT_NAME[0]", "idx", "METBASE", "-", "DIFFUSION", "0",
+        "ADVECT", "4", "DD", "1", "DD_SUBDOMAINS_ZONAL", "4",
+        "DD_SUBDOMAINS_MERIDIONAL", "2", "DD_HALOS_SIZE", "4",
+        "MET_DT_OUT", "0", "T_STOP", "86400", "DT_MOD", "1200"])
+    clim = read_clim(ctl, device=device)
+    met01 = stack_met(*(make_wind_met(t0=t0, nx=90, ny=46, nz=8, alpha=40.0,
+                                      device=device)
+                        for t0 in (0.0, 86400.0)))
+    rng = np.random.default_rng(5)
+
+    def col(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, n)).to(device)
+
+    atm = Atm(time=torch.zeros(n, dtype=torch.float64, device=device),
+              lon=col(0, 360), lat=col(-60, 60), p=col(300, 900),
+              q={"idx": torch.arange(n, dtype=torch.float64,
+                                     device=device)}, np=n)
+    if dtype == torch.float32:
+        atm, met01, clim = astype_state(atm=atm, met=met01, clim=clim)
+    return ctl, clim, met01, atm
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_dd_step_card_against_cpu(gpu, dtype, monkeypatch):
+    """The local group's step, 6 steps, on the card and on the CPU: the
+    counts exactly, every column within a few ulps; K3 carried each
+    selection on the card (three a subdomain a step, on the gather path
+    without a count pass; in float64 the time, p, lon, lat and idx
+    columns take one launch each, the first beside uvwp), one launch a
+    call that selects anything."""
+    from mptrac_tpu_torch.ops import _cuda
+    from mptrac_tpu_torch.parallel import dd as ddm
+    dt = getattr(torch, dtype)
+    sizes, real = [], ddm.permute_cols
+
+    def counted(cols32, idx, col64=None, *, plan=None):
+        if idx.is_cuda:
+            sizes.append(idx.shape[0])
+        return real(cols32, idx, col64, plan=plan)
+
+    monkeypatch.setattr(ddm, "permute_cols", counted)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ctl, clim, met01, atm = _dd_case(dev, dt)
+        dd = ddm.plan_decomposition(ctl, met01, ndev=8)
+        tiles = ddm.make_tiles(dd, met01)
+        a, c = ddm.scatter_parcels(dd, atm, 256, met01.lat[0])
+        step = ddm.make_dd_step(ctl, clim, dd, ddm.local_group(8, dev), 256,
+                                64, met01.lat[0])
+        _cuda.reset_launch_counts()
+        counts = []
+        for i in range(1, 7):
+            a, c, ov, lo = step(tiles, a, c, i * 1200.0)
+            counts.append((a.np.tolist(), ov.tolist(), lo.tolist()))
+        out[dev] = (a, c, counts, dict(_cuda.launch_counts))
+    (ag, cg, ng, launches), (ac, cc, nc, _) = out["cuda"], out["cpu"]
+    assert ng == nc
+    per = 5 if dtype == "float64" else 1
+    assert len(sizes) == 6 * 3 * 8 * per
+    assert launches["permute_gather"] == sum(1 for n in sizes if n)
+    assert launches["permute_gather"] >= 6 * 8 * per      # the stayers
+    assert (launches["permute_count"] == launches["permute_rows"]
+            == launches["permute_pack"] == 0)
+    assert ag.lon.dtype == dt and ag.time.dtype == torch.float64
+    tol = 1e-9 if dtype == "float64" else 1e-3
+    for name in ("lon", "lat", "p"):
+        np.testing.assert_allclose(getattr(ag, name).cpu().numpy(),
+                                   getattr(ac, name).numpy(), rtol=0,
+                                   atol=tol, err_msg=name)
+    assert torch.equal(ag.q["idx"].cpu(), ac.q["idx"])
+    assert torch.equal(ag.time.cpu(), ac.time)
+
+
+def test_sharded_step_on_the_card_equals_unsharded(gpu):
+    """The sharded step over two shards of the card (a mesh that names
+    cuda:0 twice) equals the unsharded step on the card bit for bit, the
+    diffusion on."""
+    from mptrac_tpu_torch.parallel import mesh as pmesh
+    from mptrac_tpu_torch.physics import pipeline
+    ctl, clim, met01, atm, cache = flagship.make_setup(
+        4096, nx=36, ny=19, nz=8, extra_args=("TPU_FAST", "0"),
+        device="cuda")
+    m = pmesh.make_mesh(2, devices=["cuda:0", "cuda:0"])
+    step = pmesh.make_sharded_step(ctl, clim, m)
+    met_rep = pmesh.replicate_met(met01, m)
+    sa, sc = pmesh.shard_atm(atm, m), pmesh.shard_cache(cache, m)
+    a, c = atm, cache
+    for i in range(1, 4):
+        a, c = pipeline.run_timestep(ctl, clim, met01, a, c, i * 180.0)
+        sa, sc = step(met_rep, sa, sc, i * 180.0)
+    ua = pmesh.unshard(sa, "cuda")
+    for name in ("lon", "lat", "p"):
+        assert torch.equal(getattr(ua, name), getattr(a, name)), name
+    assert sc.rng_ctr == c.rng_ctr

@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
                  "physics.sedi", "physics.isosurf", "physics.kpp",
                  "checkpoint", "met.bin_io", "met.lossy", "met.lz4",
                  "met.read_grib", "io.grib1", "io.grib2", "native_loader",
-                 "capi"):
+                 "capi", "parallel", "parallel.dd", "parallel.mesh",
+                 "parallel.multihost"):
         assert "mptrac_tpu_torch." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

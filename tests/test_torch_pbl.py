@@ -178,7 +178,9 @@ def same_normals(case, monkeypatch):
     def jdraw(rng_type, ctr, n, dtype=jnp.float64, key=None):
         return jnp.asarray(z[:, :n], dtype), ctr + jnp.uint64(3 * n + 1)
 
-    def tdraw(rng_type, ctr, n, dtype=torch.float64, device="cuda"):
+    def tdraw(rng_type, ctr, n, dtype=torch.float64, device="cuda",
+              part=None):
+        assert part is None          # (a whole state, no shard's slice)
         return (torch.tensor(z[:, :n], dtype=dtype, device=device),
                 ctr + 3 * n + 1)
 

@@ -290,17 +290,24 @@ def test_module_decay(mid):
 
 
 def test_unported_gate_raises(mid, monkeypatch):
-    """A gate that would reach a module that is not ported raises,
-    naming it: the domain decomposition (queue 1, item 6).  The modules
-    whose gates this test held until they were ported (the PBL scheme,
-    sedimentation, radioactive decay, KPP) run now
-    (tests/test_torch_pbl.py, test_torch_kpp.py hold them).  KPP waits
-    for its interval: with ``do_kpp`` False the step is the step without
-    KPP, bit for bit, as in the JAX step."""
+    """The modules whose gates this test held until they were ported (the
+    PBL scheme, sedimentation, radioactive decay, KPP, and the domain
+    decomposition's branch of module_timesteps) run now
+    (tests/test_torch_pbl.py, test_torch_kpp.py and test_torch_dd.py hold
+    them).  ``DD 1`` on this global grid is the step without it, bit for
+    bit: the local-domain freeze that DD skips never applies there.  KPP
+    waits for its interval: with ``do_kpp`` False the step is the step
+    without KPP, bit for bit, as in the JAX step."""
     setup, _, (ta, tc) = mid
-    with pytest.raises(NotImplementedError, match="domain decomposition"):
-        tpipe.run_timestep(setup["tctl"].replace(dd=1), setup["tclim"],
-                           setup["tmet"], ta, tc, 720.0, pack=setup["tpack"])
+    plain, _ = tpipe.run_timestep(setup["tctl"], setup["tclim"],
+                                  setup["tmet"], ta, tc, 720.0,
+                                  pack=setup["tpack"])
+    dd, _ = tpipe.run_timestep(setup["tctl"].replace(dd=1), setup["tclim"],
+                               setup["tmet"], ta, tc, 720.0,
+                               pack=setup["tpack"])
+    for name in ("lon", "lat", "p"):
+        torch.testing.assert_close(getattr(dd, name), getattr(plain, name),
+                                   rtol=0, atol=0)
     for kw in (dict(turb_pbl_scheme=1),
                dict(qnt_name=("t", "m", "rp", "rhop")),
                dict(radio_decay=1)):

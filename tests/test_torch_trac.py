@@ -330,15 +330,15 @@ def test_cli_usage_and_defaults(tmp_path, capsys):
 # ------------------------------------------------- what is not ported
 
 @pytest.mark.parametrize("args,match", [
-    (("DD", "1"), "domain decomposition"),
     (("MET_TYPE", "9"), "no such meteo data type"),
 ])
 def test_unported_gate_raises_by_name(fcase, args, match):
-    """The gates that remain: the domain decomposition (not ported) and
-    a MET_TYPE that names no reader.  (MET_TYPE 1 and ATM_TYPE_OUT 3 were
-    cases here while the binary met readers and the CLaMS particle files
-    raised; tests/test_torch_met_bin.py and test_torch_atm_io.py hold
-    them now.)"""
+    """The gate that remains: a MET_TYPE that names no reader.  (MET_TYPE
+    1 and ATM_TYPE_OUT 3 were cases here while the binary met readers and
+    the CLaMS particle files raised; tests/test_torch_met_bin.py and
+    test_torch_atm_io.py hold them now.  ``DD 1`` was one until the
+    domain decomposition was ported: test_ported_module_runs_and_agrees_
+    with_jax holds it.)"""
     with pytest.raises(NotImplementedError, match=match):
         trun_trac(fcase, "trac.ctl", "atm_in.tab",
                   args + ("ATM_BASENAME", "gate", "T_STOP",
@@ -378,15 +378,18 @@ def _particles_with(dirname, columns):
     ("RADIO_DECAY", "1"),
     ("KPP_CHEM", "1"),
     ("RNG_TYPE", "2"),
+    ("DD", "1"),
 ], ids=["chem_grid", "mixing", "dry_depo", "bound_cond", "pbl", "sedi",
-        "isosurf", "radio_decay", "kpp", "rng_type_2"])
+        "isosurf", "radio_decay", "kpp", "rng_type_2", "dd"])
 def test_ported_module_runs_and_agrees_with_jax(tmp_path, args,
                                                 one_torch_thread):
     """Control parameters that reach the chemistry grid and the OH
     chemistry, the mixing, the dry deposition, the boundary conditions,
     the PBL scheme, sedimentation (of 1 um particles of 2500 kg/m^3), the
-    isosurface, radioactive decay, KPP chemistry and the threefry
-    generator: ``run_trac`` runs to the end in both packages (float64, the
+    isosurface, radioactive decay, KPP chemistry, the threefry
+    generator and ``DD 1`` (whose only effect in ``run_trac``, in both
+    packages, is that module_timesteps skips the local-domain freeze):
+    ``run_trac`` runs to the end in both packages (float64, the
     case of ``make_case``, three steps) and the final states agree at the
     tolerances of test_run_trac_states_agree_with_jax.  (These were the
     cases of test_unported_gate_raises_by_name while the modules raised;
