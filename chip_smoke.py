@@ -149,7 +149,26 @@ non-zero code and prints no result.  Phases, each of which must pass:
     local group's bit for bit; then two ranks on one card over NCCL and,
     where NCCL refuses them as a duplicate GPU, over gloo with the ranks'
     CUDA buffers; which backend carried it is printed, and any other
-    failure, or none carrying it, fails the phase.
+    failure, or none carrying it, fails the phase;
+32. tools path: the met tools on the flagship's met (360x181x61 netCDF
+    files six hours apart, as ``flagship.write_case`` writes them), each
+    through its ``main`` with ``--device cuda``: ``met_map`` on the
+    1-degree global grid at 10 km and at theta 350 K, ``met_zm``,
+    ``met_prof``, ``cape``, ``tropo`` and ``met_sample`` on 1,048,576 of
+    the flagship's parcels inside one met interval; each tool's seconds
+    split into met read, sampling and the rest; every ``sample_met``
+    (and ``find_theta_level``) call sampled again on the CPU from the
+    same met and points (``met_sample``: its first 65,536 points), and
+    tropo's product made again with ``--device cpu``: the largest
+    relative difference of every column, within ``TOOLS_REL_TOL``;
+33. web path: the port's web runner (``--device cuda``) on those files:
+    the form, two runs of 100,000 parcels over 6 h (the second with the
+    Robinson projection and a custom region) polled to their end, each
+    request's seconds and each run's stages from ``/logs``.  Without
+    matplotlib (as on the H100 machine) the plot stage fails and so
+    the run, as in the JAX runner: each run must fail there and nowhere
+    else, with trac's 7 particle files written; with matplotlib each
+    must end with its results.zip.
 
 Every phase prints its seconds (``[phase]`` lines, ``phase_seconds``).
 The environment phase also names the libzstd that ``met/zstd`` binds and
@@ -171,6 +190,7 @@ profiler pass that prints the device time by kernel.
 """
 
 import argparse
+import contextlib
 import importlib.metadata
 import json
 import math
@@ -4266,6 +4286,422 @@ def phase_dd_dist(torch):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------- tools and web runner
+
+TOOLS_N = 1 << 20               # met_sample's points on the card
+TOOLS_CPU_N = 1 << 16           # ... and their subset on the CPU
+TOOLS_DT_MET = 21600.0          # two met files six hours apart
+TOOLS_REL_TOL = 1e-9            # card against CPU, float64 sampling
+WEB_N = 100_000
+WEB_TIMEOUT = 600
+
+
+def rel_diff(a, b):
+    """Largest |a - b| / |b| over a column (0 where both are NaN or equal,
+    inf where only one is NaN)."""
+    import numpy as np
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    both = (np.isnan(a) & np.isnan(b)) | (a == b)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        r = np.abs(a - b) / np.abs(b)
+    r = np.where(both, 0.0, np.where(np.isnan(r), np.inf, r))
+    return float(r.max()) if r.size else 0.0
+
+
+class Recorder:
+    """Stands in for a function that a tool module imported by name:
+    calls it and keeps each call's arguments and result, and the seconds
+    it took (``seconds``, the device synced at both ends)."""
+
+    def __init__(self, module, name, torch):
+        self.module, self.name, self.torch = module, name, torch
+        self.fn = getattr(module, name)
+        self.calls = []
+        self.seconds = 0.0
+
+    def __enter__(self):
+        def record(*args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.time()
+            out = self.fn(*args, **kw)
+            self.torch.cuda.synchronize()
+            self.seconds += time.time() - t0
+            self.calls.append((args, out))
+            return out
+        setattr(self.module, self.name, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def run_tool_timed(torch, mod, argv, tag):
+    """A tool's ``main`` on the card: seconds, with the device synced."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rc = mod.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"{tag}: returned {rc}")
+    return time.time() - t0
+
+
+def phase_tools_path(torch):
+    """The met tools on the card at full size (see the module doc): each
+    tool's seconds, and the card against the CPU on the same inputs, the
+    largest relative difference of every sampled column.  Returns the
+    directory with the met files for ``phase_web_path``; the caller
+    removes it."""
+    import numpy as np
+
+    from mptrac_tpu_torch import flagship
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.io import atm_io
+    from mptrac_tpu_torch.ops import interp
+    from mptrac_tpu_torch.tools import (_cli, cape, met_map, met_prof,
+                                        met_sample, met_zm, tropo)
+    from mptrac_tpu_torch.tools import _met_sample as ms
+    from mptrac_tpu_torch.types import _map_tensors
+
+    tmp = tempfile.mkdtemp(prefix="mptrac_tools_")
+    kept = False
+    try:
+        t0 = time.time()
+        flagship.write_case(tmp, 1, GRID, 0.0, TOOLS_DT_MET, 0,
+                            TOOLS_DT_MET)
+        ctl_file = os.path.join(tmp, "trac.ctl")
+        ctl = read_ctl(ctl_file)
+        # the flagship's parcels (its draws), at times inside the first
+        # met interval
+        rng = np.random.default_rng(0)
+        lon, lat, p = (rng.uniform(-180, 180, TOOLS_N),
+                       rng.uniform(-60, 60, TOOLS_N),
+                       rng.uniform(200, 900, TOOLS_N))
+        times = np.random.default_rng(1).uniform(0.0, TOOLS_DT_MET,
+                                                 TOOLS_N)
+        points = os.path.join(tmp, "points.bin")
+        atm_io.write_atm(points, ctl, _cli.host_atm(
+            times, p, lon, lat, {k: np.zeros(TOOLS_N)
+                                 for k in ctl.qnt_name}), 0.0)
+        met0, met1 = (os.path.join(tmp, f"met_2000_01_01_{h:02d}.nc")
+                      for h in (0, 6))
+        setup_s = time.time() - t0
+        say(f"[tools] met files {GRID} and {TOOLS_N} points written in "
+            f"{setup_s:.1f} s")
+
+        def cpu(x):
+            return _map_tensors(x, lambda a: a.cpu())
+
+        def against_cpu(calls, m=None):
+            """Each recorded sample_met call again on the CPU (the first
+            ``m`` points): the largest relative difference by column."""
+            worst = {}
+            for (c, clim, met, pp, lo, la), out in calls:
+                sl = slice(0, m)
+                ref = ms.sample_met(c, cpu(clim), cpu(met), pp[sl], lo[sl],
+                                    la[sl])
+                for k, v in ref.items():
+                    worst[k] = max(worst.get(k, 0.0),
+                                   rel_diff(out[k][sl], v))
+            return worst
+
+        out, summary = {}, {}
+        cheap = ["MET_TROPO", "0", "MET_CAPE", "0"]
+
+        def sampled(tag, mod, args, theta=False, m=None):
+            reader = mod.MetBuffer if mod is met_sample else mod.read_met
+            with Recorder(mod, "sample_met", torch) as rec, \
+                    Recorder(mod, reader.__name__, torch) as rd:
+                th = (Recorder(mod, "find_theta_level", torch) if theta
+                      else contextlib.nullcontext())
+                with th:
+                    s = run_tool_timed(
+                        torch, mod, [tag.split("-")[0], ctl_file,
+                                     os.path.join(tmp, tag + ".tab"),
+                                     *args, "--device", "cuda"], tag)
+            diff = against_cpu(rec.calls, m)
+            npts = sum(int(np.size(a[3])) for a, _ in rec.calls)
+            sample_s = rec.seconds + (th.seconds if theta else 0.0)
+            read_s = (sum(r["read"] + r["preprocess"] + r["upload"]
+                          for r in rd.calls[0][1].reads)
+                      if mod is met_sample else rd.seconds)
+            entry = {"s": s, "read_met_s": read_s, "sample_s": sample_s,
+                     "rest_s": s - read_s - sample_s, "points": npts,
+                     "points_vs_cpu": min(npts, m or npts),
+                     "max_rel_diff_vs_cpu": max(diff.values()),
+                     "by_column": diff}
+            if theta:
+                (met, theta_v, lo, la), pth = th.calls[0]
+                ref = ms.find_theta_level(cpu(met), theta_v, lo, la)
+                entry["theta_p_rel_diff_vs_cpu"] = rel_diff(pth, ref)
+            out[tag] = entry
+            say(f"[tools] {tag}: {s:.2f} s on the card (met read "
+                f"{read_s:.2f}, sampling {sample_s:.3f}, the rest "
+                f"{entry['rest_s']:.2f}), {npts} points, card vs CPU max "
+                f"rel. diff {entry['max_rel_diff_vs_cpu']:.3g}")
+
+        sampled("met_map", met_map, [met0, "MAP_Z0", "10", *cheap])
+        sampled("met_map-theta", met_map, [met0, "MAP_THETA", "350",
+                                           *cheap], theta=True)
+        sampled("met_zm", met_zm, [met0, "ZM_DLON", "5", *cheap])
+        sampled("met_prof", met_prof, [met0, "PROF_LON0", "-20",
+                                       "PROF_LON1", "20", "PROF_LAT0",
+                                       "-20", "PROF_LAT1", "20", *cheap])
+        sampled("met_sample", met_sample, [points, *cheap], m=TOOLS_CPU_N)
+
+        # cape: five surface fields at one point, from a read with CAPE on
+        with Recorder(cape, "read_met", torch) as rec:
+            s = run_tool_timed(torch, cape, ["cape", ctl_file, met0, "10",
+                                             "20", "--device", "cuda"],
+                               "cape")
+        met = rec.calls[0][1]
+
+        def cape_at(m):
+            def pt(x):
+                return torch.tensor([x], dtype=torch.float64,
+                                    device=m.lon.device)
+            loc = interp.locate_3d(m, pt(10.0), pt(20.0), pt(500.0))
+            return {k: float(interp.interp_2d(m.fields2d[k], loc)[0])
+                    for k in ("plcl", "plfc", "pel", "cape", "cin")}
+        card, host = cape_at(met), cape_at(cpu(met))
+        diff = {k: rel_diff([card[k]], [host[k]]) for k in card}
+        out["cape"] = {"s": s, "points": 1, "values": card,
+                       "max_rel_diff_vs_cpu": max(diff.values()),
+                       "by_column": diff}
+        say(f"[tools] cape: {s:.2f} s on the card, {card}")
+
+        # tropo: the product on the card and on the CPU (on the
+        # flagship's isothermal met no column has a WMO tropopause, and
+        # CAPE is NaN: the share of finite columns is printed)
+        prods = {}
+        for dev in ("cuda", "cpu"):
+            nc = os.path.join(tmp, f"tropo_{dev}.nc")
+            s = run_tool_timed(torch, tropo, ["tropo", ctl_file, nc, met0,
+                                              "--device", dev], "tropo")
+            from scipy.io import netcdf_file
+            f = netcdf_file(nc, mmap=False)
+            prods[dev] = (s, {k: np.array(v[:]) for k, v in
+                              f.variables.items()})
+            f.close()
+        diff = {k: rel_diff(prods["cuda"][1][k], v)
+                for k, v in prods["cpu"][1].items()}
+        finite = float(np.isfinite(prods["cuda"][1]["wmo_1st_p"]).mean())
+        out["tropo"] = {"s": prods["cuda"][0], "s_cpu": prods["cpu"][0],
+                        "max_rel_diff_vs_cpu": max(diff.values()),
+                        "by_column": diff, "wmo_1st_finite_share": finite}
+        say(f"[tools] tropo: {prods['cuda'][0]:.2f} s on the card, "
+            f"{prods['cpu'][0]:.2f} s with --device cpu")
+
+        # what came out: rows of the expected count and width, finite
+        # in time, position and the 3-D fields (every 64th row parsed)
+        nmap = (GRID[0] + 1) * GRID[1]       # 1-degree global map
+        for tag, nrow in (("met_sample", TOOLS_N), ("met_map", nmap),
+                          ("met_map-theta", nmap)):
+            n, rows = every_row(os.path.join(tmp, tag + ".tab"), 64)
+            if (n != nrow or rows.shape[1] != 55
+                    or not np.isfinite(rows[:, :9]).all()):
+                raise RuntimeError(f"tools path: {tag} wrote {n} rows "
+                                   f"of {rows.shape[1]} columns")
+        bad = {k: v["max_rel_diff_vs_cpu"] for k, v in out.items()
+               if not v["max_rel_diff_vs_cpu"] <= TOOLS_REL_TOL
+               or not v.get("theta_p_rel_diff_vs_cpu", 0.0)
+               <= TOOLS_REL_TOL}
+        if bad:
+            raise RuntimeError(f"tools path: card and CPU differ: {bad}")
+        summary = {"grid": list(GRID), "setup_s": setup_s,
+                   "rel_tol": TOOLS_REL_TOL, "tools": out}
+        say(json.dumps({"tools_path": summary}))
+        kept = True
+        return {"tmp": tmp, "metbase": os.path.join(tmp, "met")}
+    finally:
+        if not kept:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def every_row(path, k):
+    """(number of data rows, every ``k``-th data row as floats) of a
+    text output."""
+    import numpy as np
+    n, rows = 0, []
+    with open(path) as f:
+        for line in f:
+            if not line.strip() or line.startswith("#"):
+                continue
+            if n % k == 0:
+                rows.append([float(x) for x in line.split()])
+            n += 1
+    return n, np.array(rows)
+
+
+def web_request(url, data=None, timeout=60):
+    """(seconds, final url, body) of one request to the runner."""
+    import urllib.request
+    t0 = time.time()
+    req = urllib.request.Request(url, data=data)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read()
+        final = r.url
+    return time.time() - t0, final, body
+
+
+def phase_web_path(torch, tools):
+    """The port's web runner (``mptrac_tpu_torch.web.runner --device
+    cuda``) on tools_path's met files: the form, two runs (one with the
+    Robinson projection and a custom region) polled to their end, the
+    seconds of each request and each run's stages from ``/logs``.  With
+    matplotlib each run must end with its results.zip (7 maps, 7 particle
+    files).  Without it the plot stage fails and so the run, as in the
+    JAX runner: then each run must have failed at that stage and nowhere
+    else, with every stage before it done on the card and trac's 7
+    particle files written; any other failure fails the phase."""
+    import glob
+    import html
+    import importlib.util
+    import io
+    import socket
+    import urllib.error
+    import urllib.parse
+    import zipfile
+
+    import numpy as np
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    mpl = (importlib.metadata.version("matplotlib") if has_mpl
+           else "missing (the plot stage, and so every run, fails)")
+    say(f"[web] matplotlib: {mpl}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    log = open(os.path.join(tools["tmp"], "runner.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mptrac_tpu_torch.web.runner", "--port",
+         str(port), "--metbase", tools["metbase"], "--dt-met",
+         str(TOOLS_DT_MET), "--device", "cuda"], env=env, stdout=log,
+        stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    requests = []
+    run_ids = []
+    try:
+        t_up = time.time()
+        while True:
+            try:
+                s, _, body = web_request(base + "/")
+                break
+            except OSError:
+                if proc.poll() is not None or time.time() - t_up > 60:
+                    raise RuntimeError("web path: the runner did not "
+                                       "start")
+                time.sleep(0.2)
+        requests.append(("GET /", s))
+        if b"mptrac-tpu simulation runner" not in body:
+            raise RuntimeError("web path: / did not answer the form")
+        runs = [
+            dict(proj="cartesian", region="global"),
+            dict(proj="robinson", region="custom", lon_min="-40",
+                 lon_max="60", lat_min="-10", lat_max="60")]
+        for extra in runs:
+            params = {"met": "default", "t0": "0", "hours": "6",
+                      "lon": "10", "lat": "20", "z": "5",
+                      "n": str(WEB_N), "mass": "1e9", "dt_mod": "180",
+                      "lon_min": "-180", "lon_max": "180",
+                      "lat_min": "-90", "lat_max": "90", "z_min": "-999",
+                      "z_max": "-999", "diffusion": "on", "meso": "on"}
+            params.update(extra)
+            s, url, _ = web_request(
+                base + "/run", urllib.parse.urlencode(params).encode())
+            requests.append((f"POST /run ({extra['proj']})", s))
+            run_ids.append(url.rstrip("/").split("/")[-1])
+        t_runs = time.time()
+        polls = {r: 0 for r in run_ids}
+        ended, errors = {}, {}
+        while len(ended) < len(run_ids):
+            if time.time() - t_runs > WEB_TIMEOUT:
+                raise RuntimeError("web path: runs did not end in "
+                                   f"{WEB_TIMEOUT} s")
+            for r in run_ids:
+                if r in ended:
+                    continue
+                t0 = time.time()
+                try:
+                    _, _, body = web_request(f"{base}/status/{r}")
+                except urllib.error.HTTPError as e:
+                    if e.code != 500:
+                        raise
+                    body = b""
+                    errors[r] = e.read().decode(errors="replace")
+                polls[r] += 1
+                requests.append(("GET /status", time.time() - t0))
+                if b"running" not in body:
+                    ended[r] = time.time() - t_runs
+            time.sleep(0.5)
+        s, _, body = web_request(base + "/logs")
+        requests.append(("GET /logs", s))
+        logs = body.decode(errors="replace")
+        want = {"atm_init", "atm_split", "trac"} | (
+            {"plot"} if has_mpl else set())
+        results = {}
+        for r in run_ids:
+            stages = {m.group(1): float(m.group(2)) for m in re.finditer(
+                rf"run {r} stage (\w+) ([0-9.]+) s", logs)}
+            if set(stages) != want:
+                raise RuntimeError(f"web path: run {r} stages {stages}, "
+                                   f"error {errors.get(r, '')[:3000]}")
+            if has_mpl:
+                if r in errors:
+                    raise RuntimeError(f"web path: run {r} failed: "
+                                       f"{errors[r][:3000]}")
+                s, _, zbody = web_request(f"{base}/file/{r}/results.zip")
+                requests.append(("GET results.zip", s))
+                z = zipfile.ZipFile(io.BytesIO(zbody))
+                names = z.namelist()
+                pngs = [n for n in names if n.endswith(".png")]
+                tabs = sorted(n for n in names if n.startswith("atm_"))
+                last = np.loadtxt(z.open(tabs[-1]))
+                extra = {"zip_bytes": len(zbody), "pngs": len(pngs)}
+            else:
+                err = html.unescape(errors.get(r, ""))
+                if not (err.startswith("<pre>plot: ") and
+                        "No module named 'matplotlib'" in err):
+                    raise RuntimeError(f"web path: run {r} did not fail "
+                                       f"at the plot stage: {err[:3000]}")
+                work = glob.glob(os.path.join(tempfile.gettempdir(),
+                                              f"webrun_{r}_*"))
+                tabs = sorted(glob.glob(os.path.join(work[0], "atm_*.tab")))
+                last = np.loadtxt(tabs[-1])
+                pngs = []
+                extra = {"failed_at": "plot (no matplotlib)"}
+            if (len(tabs) != 7 or (has_mpl and len(pngs) != 7)
+                    or last.shape != (WEB_N, 5)
+                    or not np.isfinite(last).all()):
+                raise RuntimeError(f"web path: run {r}: {len(tabs)} particle "
+                                   f"files, {len(pngs)} maps, the last "
+                                   f"{last.shape}")
+            results[r] = dict(extra, atm_files=len(tabs), seconds=ended[r],
+                              polls=polls[r], stages_s=stages)
+            say(f"[web] run {r}: {ended[r]:.1f} s, stages {stages}"
+                + ("" if has_mpl else "; failed at plot (no matplotlib)"))
+        by_kind = {}
+        for kind, s in requests:
+            by_kind.setdefault(kind, []).append(s)
+        say(json.dumps({"web_path": {
+            "n_parcels": WEB_N, "hours": 6, "dt_mod": 180,
+            "matplotlib": mpl, "runs": results,
+            "request_s": {k: {"n": len(v), "mean": float(np.mean(v)),
+                              "max": max(v)} for k, v in by_kind.items()}
+        }}))
+    finally:
+        proc.kill()
+        proc.wait()
+        log.close()
+        for r in run_ids:
+            for d in glob.glob(os.path.join(tempfile.gettempdir(),
+                                            f"webrun_{r}_*")):
+                shutil.rmtree(d, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--np", type=int, default=N_FLAGSHIP,
@@ -4364,6 +4800,11 @@ def main():
             k["dd_path"] = k3_dd
     phase("dd_vs_cpu", phase_dd_vs_cpu, torch)
     phase("dd_dist", phase_dd_dist, torch)
+    tools = phase("tools_path", phase_tools_path, torch)
+    try:
+        phase("web_path", phase_web_path, torch, tools)
+    finally:
+        shutil.rmtree(tools["tmp"], ignore_errors=True)
     say(json.dumps({"phase_seconds": seconds}))
     say(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

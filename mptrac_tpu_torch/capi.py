@@ -50,12 +50,13 @@ def create(dirname: str, ctl_file: str, atm_file: str,
     from mptrac_tpu_torch.config import read_ctl
     from mptrac_tpu_torch.io import atm_io
     from mptrac_tpu_torch.sim import Simulation
-    from mptrac_tpu_torch.tools.trac import _pop_option
+    from mptrac_tpu_torch.tools._cli import pop_device, pop_option
+    from mptrac_tpu_torch.tools.trac import _USAGE
 
     args = list(args or ())
-    device = _pop_option(args, "--device", "cuda", ("cuda", "cpu"))
-    dtype = getattr(torch, _pop_option(args, "--dtype", "float64",
-                                       ("float64", "float32")))
+    device = pop_device(args, _USAGE)
+    dtype = getattr(torch, pop_option(args, "--dtype", "float64",
+                                      ("float64", "float32"), _USAGE))
     ctl = read_ctl(os.path.join(dirname, ctl_file), args)
     atm = atm_io.read_atm(os.path.join(dirname, atm_file), ctl, dtype=dtype,
                           device=device)

@@ -1,9 +1,10 @@
 """Altitude kernel functions for output weighting (reference
 read_kernel, mptrac.c:8522, kernel_weight c:3298).
 
-Own copy of the JAX package's ``read_kernel``, and its ``kernel_weight``
-for a tensor of pressures on its own device (``kernel_weight_t``), with
-``np.interp``'s arithmetic and its clamping at both ends.
+Own copy of the JAX package's ``read_kernel`` and ``kernel_weight`` (on
+the host, for ``tools.atm_split``), and ``kernel_weight`` for a tensor of
+pressures on its own device (``kernel_weight_t``), with ``np.interp``'s
+arithmetic and its clamping at both ends.
 """
 
 from __future__ import annotations
@@ -72,3 +73,13 @@ def kernel_weight_t(kz, kw, p: torch.Tensor) -> torch.Tensor:
     if kz is None or len(kz) < 2:
         return torch.ones_like(p64)
     return kernel_at(kz, kw, H0 * torch.log(P0 / p64))
+
+
+def kernel_weight(kz, kw, p):
+    """Weight at pressure ``p`` [hPa] on the host (numpy), by linear
+    interpolation in altitude (reference kernel_weight, c:3298); 1.0 when
+    no kernel is loaded."""
+    if kz is None or len(kz) < 2:
+        return np.ones_like(np.asarray(p, float))
+    z = H0 * np.log(P0 / np.asarray(p, float))
+    return np.interp(z, kz, kw)

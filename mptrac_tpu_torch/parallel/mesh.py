@@ -7,11 +7,14 @@ OpenMP particle loops, mptrac.h:1536 PARTICLE_LOOP).  JAX lets
 ``jax.jit`` partition one global program over sharded arrays; PyTorch
 has no such partitioner, so here a sharded array is a ``Sharded``: the
 blocks of one global tensor, one a device, and ``make_sharded_step``
-runs the port's step on each block.  The one thing a block cannot
-compute alone is its random draws: each shard draws its own parcels'
-slice of the global draw (``Cache.rng_part``), so the sharded step
-equals the unsharded one bit for bit and the counter advances once by
-the global draw.
+runs the port's step on each block.  Two things a block cannot compute
+alone.  Its random draws: each shard draws its own parcels' slice of the
+global draw (``Cache.rng_part``), so the sharded step equals the
+unsharded one bit for bit and the counter advances once by the global
+draw.  And the box sums of mixing and of the chemistry grid, which take
+the parcels of every shard: there the shards run in lockstep threads
+that add their sums at a barrier, and the step equals the unsharded one
+up to the order of those float sums.
 
 A mesh may name one device several times (``make_mesh(4,
 devices=[torch.device("cpu")] * 4)``): the tests' counterpart of JAX's
@@ -22,6 +25,7 @@ are :mod:`mptrac_tpu_torch.parallel.multihost`.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -185,28 +189,67 @@ def pad_to_multiple(atm: Atm, multiple: int) -> Atm:
                np=atm.np)
 
 
+class _BoxReducer:
+    """The box sums of one step over the shards that run it in lockstep
+    threads: each shard hands in its sums and waits at a barrier; the
+    last to arrive adds them in shard order on the first shard's device,
+    and every shard takes the total back to its own device.  Every shard
+    makes the same box sums in the same order (one ctl, one set of
+    quantities); a shard reads the total before it can hand in its next
+    sums, so one total at a time suffices."""
+
+    def __init__(self, mesh: Mesh):
+        self.device = mesh.devices[0]
+        self.parts = [None] * len(mesh.devices)
+        self.total = None
+        self.barrier = threading.Barrier(len(mesh.devices),
+                                         action=self._combine)
+
+    def _combine(self):
+        total = self.parts[0].to(self.device)
+        for part in self.parts[1:]:
+            total = total + part.to(self.device)
+        self.total = total
+
+    def shard(self, k: int):
+        def reduce(part: torch.Tensor) -> torch.Tensor:
+            self.parts[k] = part
+            self.barrier.wait()
+            return self.total.to(part.device)
+        return reduce
+
+
+def _crosses_shards(ctl, flags) -> bool:
+    """Whether the step runs a module that sums parcels of every shard
+    (``physics.mixing.box_sum``): mixing or the chemistry grid, as
+    ``pipeline.run_timestep`` gates them."""
+    return ((ctl.mixing_trop >= 0 and ctl.mixing_strat >= 0
+             and flags.do_mixing)
+            or ctl.oh_chem_reaction != 0 or ctl.h2o2_chem_reaction != 0
+            or (ctl.kpp_chem and flags.do_kpp))
+
+
+def _alone(part):
+    """The box sum of a shard run on its own: a module that
+    ``_crosses_shards`` does not know of."""
+    raise RuntimeError("sharded step: a box sum in a step whose shards "
+                       "run one after another")
+
+
 def make_sharded_step(ctl, clim, mesh: Mesh):
     """The step over sharded parcels: the counterpart of ``jax.jit`` of
     ``pipeline.run_timestep`` on arrays placed by ``shard_atm``,
-    ``shard_cache`` and ``replicate_met``.
+    ``shard_cache`` and ``replicate_met`` (one process).
 
     Returns ``step(met_rep, atm, cache, t, flags=StepFlags())`` ->
     ``(atm, cache)``, sharded as they came.  Every shard runs the step on
-    its own device with its slice of the global random draws.  Modules
-    that combine parcels across the ensemble (mixing, the chemistry
-    grid) would need collectives that this step does not have: they
-    raise."""
-    from mptrac_tpu_torch.physics import pipeline
+    its own device with its slice of the global random draws.  Where the
+    step mixes parcels or grids the chemistry, whose box sums take the
+    parcels of every shard, the shards run in lockstep threads and each
+    box sum is summed over the shards (``_BoxReducer``): the result
+    equals the unsharded step's up to the order of the float sums."""
+    from mptrac_tpu_torch.physics import mixing, pipeline
 
-    if ctl.mixing_trop >= 0 and ctl.mixing_strat >= 0:
-        raise NotImplementedError(
-            "sharded step: interparcel mixing combines parcels of every "
-            "shard")
-    if ctl.oh_chem_reaction != 0 or ctl.h2o2_chem_reaction != 0 \
-            or ctl.kpp_chem:
-        raise NotImplementedError(
-            "sharded step: the chemistry grid combines parcels of every "
-            "shard")
     clims = _replicate(clim, mesh)
 
     def step(met_rep, atm: Atm, cache: Cache, t: float,
@@ -214,17 +257,48 @@ def make_sharded_step(ctl, clim, mesh: Mesh):
         ndev = len(mesh.devices)
         c = atm.time.blocks[0].shape[0]
         total = atm.time.shape[0]
-        atms, caches = [], []
-        for k in range(ndev):
+        out = [None] * ndev
+
+        def run(k, reduce=_alone):
             a_k = Atm(time=atm.time.blocks[k], p=atm.p.blocks[k],
                       lon=atm.lon.blocks[k], lat=atm.lat.blocks[k],
                       q={n: v.blocks[k] for n, v in atm.q.items()},
                       np=min(max(atm.np - k * c, 0), c))
             c_k = _cache_block(cache, k).replace(rng_part=(k * c, total))
-            a_k, c_k = pipeline.run_timestep(ctl, clims[k], met_rep[k], a_k,
-                                             c_k, float(t), flags)
-            atms.append(a_k)
-            caches.append(c_k)
+            mixing.SHARD.reduce = reduce
+            try:
+                out[k] = pipeline.run_timestep(ctl, clims[k], met_rep[k],
+                                               a_k, c_k, float(t), flags)
+            finally:
+                mixing.SHARD.reduce = None
+
+        if _crosses_shards(ctl, flags):
+            reducer = _BoxReducer(mesh)
+            errors = []
+
+            def lockstep(k):
+                try:
+                    run(k, reducer.shard(k))
+                except Exception as exc:
+                    errors.append(exc)
+                    reducer.barrier.abort()   # release the other shards
+
+            threads = [threading.Thread(target=lockstep, args=(k,))
+                       for k in range(ndev)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            if errors:
+                # the first failure, not a shard's BrokenBarrierError
+                errors.sort(key=lambda e: isinstance(
+                    e, threading.BrokenBarrierError))
+                raise errors[0]
+        else:
+            for k in range(ndev):
+                run(k)
+        atms = [a_k for a_k, _ in out]
+        caches = [c_k for _, c_k in out]
         ctrs = {c_k.rng_ctr for c_k in caches}
         if len(ctrs) != 1:
             raise RuntimeError(f"sharded step: shards ended on counters "

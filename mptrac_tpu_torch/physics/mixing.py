@@ -11,6 +11,8 @@ moves a box mean by a few ulp."""
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from mptrac_tpu_torch.config import Ctl
@@ -66,10 +68,19 @@ def box_index(ctl: Ctl, atm: Atm, ix, iy, iz, ok, nx: int, ny: int,
     return torch.where(ok, idx, ngrid * nens), ngrid * nens + 1
 
 
+#: ``reduce`` of the running thread: set by the sharded step
+#: (``parallel.mesh.make_sharded_step``) in each shard's thread, so that a
+#: box sum becomes the sum over every shard's parcels
+SHARD = threading.local()
+
+
 def box_sum(values, idx, nbox: int):
-    """Sum of ``values`` per box (the JAX package's segment_sum)."""
-    return torch.zeros(nbox, dtype=values.dtype,
-                       device=values.device).index_add_(0, idx, values)
+    """Sum of ``values`` per box (the JAX package's segment_sum); in a
+    shard of the sharded step, the sum over all shards."""
+    total = torch.zeros(nbox, dtype=values.dtype,
+                        device=values.device).index_add_(0, idx, values)
+    reduce = getattr(SHARD, "reduce", None)
+    return total if reduce is None else reduce(total)
 
 
 def module_mixing(ctl: Ctl, clim: Clim, atm: Atm, t: float) -> Atm:

@@ -29,3 +29,48 @@ def require_args(argv: Sequence[str], n: int, usage: str):
         raise UsageError(
             "Missing or invalid command-line arguments.\n\n"
             f"Usage: {usage}\n\nUse -h for full help.")
+
+
+def pop_option(argv, name, default, choices, usage):
+    """Take ``name VALUE`` out of ``argv`` (the rest is the reference's
+    ``KEY VALUE`` tail, which must keep its pairing)."""
+    if name not in argv:
+        return default
+    i = argv.index(name)
+    if i + 1 >= len(argv) or argv[i + 1] not in choices:
+        raise UsageError(f"{name} takes one of {', '.join(choices)}.\n\n"
+                         f"Usage: {usage}")
+    value = argv[i + 1]
+    del argv[i:i + 2]
+    return value
+
+
+def pop_device(argv, usage):
+    """``--device cuda|cpu`` out of ``argv``: where a tool's tensors live
+    (default ``cuda``, which raises without a GPU)."""
+    return pop_option(argv, "--device", "cuda", ("cuda", "cpu"), usage)
+
+
+def host_columns(atm):
+    """(time, p, lon, lat, q) of an Atm's live parcels as numpy arrays."""
+    n = atm.np
+
+    def h(x):
+        return x[:n].detach().cpu().numpy()
+
+    return (h(atm.time), h(atm.p), h(atm.lon), h(atm.lat),
+            {k: h(v) for k, v in atm.q.items()})
+
+
+def host_atm(time, p, lon, lat, q):
+    """An Atm on the CPU (float64) from numpy columns, for the writers."""
+    import numpy as np
+    import torch
+
+    from mptrac_tpu_torch.types import Atm
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float64))
+
+    return Atm(time=t(time), p=t(p), lon=t(lon), lat=t(lat),
+               q={k: t(v) for k, v in q.items()}, np=int(np.size(time)))

@@ -25,31 +25,18 @@ from __future__ import annotations
 import os
 import sys
 
-from mptrac_tpu_torch.tools._cli import UsageError, require_args, run_tool
+from mptrac_tpu_torch.tools._cli import (pop_device, pop_option,
+                                         require_args, run_tool)
 
 _USAGE = ("trac <dirlist> <ctl> <atm_in> [KEY VALUE ...] "
           "[--device cuda|cpu] [--dtype float64|float32]")
 
 
-def _pop_option(argv, name, default, choices):
-    """Take ``name VALUE`` out of ``argv`` (the rest is the reference's
-    ``KEY VALUE`` tail, which must keep its pairing)."""
-    if name not in argv:
-        return default
-    i = argv.index(name)
-    if i + 1 >= len(argv) or argv[i + 1] not in choices:
-        raise UsageError(f"{name} takes one of {', '.join(choices)}.\n\n"
-                         f"Usage: {_USAGE}")
-    value = argv[i + 1]
-    del argv[i:i + 2]
-    return value
-
-
 def main(argv):
     argv = list(argv)
-    device = _pop_option(argv, "--device", "cuda", ("cuda", "cpu"))
-    dtype_name = _pop_option(argv, "--dtype", "float64",
-                             ("float64", "float32"))
+    device = pop_device(argv, _USAGE)
+    dtype_name = pop_option(argv, "--dtype", "float64",
+                            ("float64", "float32"), _USAGE)
     require_args(argv, 4, _USAGE)
     import torch
 

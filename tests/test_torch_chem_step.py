@@ -40,6 +40,17 @@ from mptrac_tpu_torch.physics import pipeline as tpipe
 NSTEPS = 4
 SORT_AT = 3
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small shapes: more intra-op threads would only spin, on the cores
+    of the other test workers (module-wide, so that the module fixtures
+    run on one thread too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 #: relative tolerances of m and T on the ``weather`` pair, after
 #: ``steps`` steps, that replace those of test_torch_step.py.  float32:
 #: the chemistry's losses are exp(-k dt) with k up to ~1.5/dt from pow

@@ -194,6 +194,17 @@ from mptrac_tpu_torch.parallel import dd as tdd  # noqa: E402
 os.environ.setdefault("LOGLEV", "0")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small shapes: more intra-op threads would only spin, on the cores
+    of the other test workers (module-wide, so that the module fixtures
+    run on one thread too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def stress_jax(tmp_path_factory):
     """The JAX side of the stress case, in a process of its own with 9
@@ -644,3 +655,27 @@ def test_receiving_beyond_capacity_raises(dd_case):
                             16, lat_axis)
     with pytest.raises(ValueError, match="exceed its capacity 30"):
         step(tdd.make_tiles(tg, c["tmet01"]), a, ca, 1200.0)
+
+
+@pytest.mark.parametrize("devices", [("cpu", "cuda:0"), ("cuda:0", "cuda:1"),
+                                     ("cpu", "cpu:1")],
+                         ids=["cpu-cuda", "two-cards", "cpu-indices"])
+def test_local_group_on_several_devices_raises(devices):
+    """A local group whose subdomains lie on different devices of one
+    process is refused (no machine at hand has two cards to hold such an
+    exchange against anything); the mesh needs no card to be built."""
+    import torch
+
+    from mptrac_tpu_torch.config import read_ctl
+    from mptrac_tpu_torch.met.synthetic import make_wind_met
+    from mptrac_tpu_torch.parallel import dd as tdd
+    from mptrac_tpu_torch.parallel.mesh import Mesh
+    ctl = read_ctl(None, ["DD_SUBDOMAINS_ZONAL", "2",
+                          "DD_SUBDOMAINS_MERIDIONAL", "1"] + DD_CTL)
+    dd = tdd.plan_decomposition(
+        ctl, make_wind_met(nx=36, ny=19, nz=8, device="cpu"), ndev=2)
+    group = Mesh(devices=tuple(torch.device(d) for d in devices),
+                 axis="sub")
+    with pytest.raises(NotImplementedError, match="several devices"):
+        tdd.make_dd_step(ctl, None, dd, group, cap=16, exch_cap=4,
+                         lat_axis=None)

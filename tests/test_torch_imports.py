@@ -36,8 +36,16 @@ def test_port_imports_no_jax():
                  "checkpoint", "met.bin_io", "met.lossy", "met.lz4",
                  "met.read_grib", "io.grib1", "io.grib2", "native_loader",
                  "capi", "parallel", "parallel.dd", "parallel.mesh",
-                 "parallel.multihost"):
+                 "parallel.multihost", "web", "web.runner",
+                 "tools._met_sample", "tools.plot"):
         assert "mptrac_tpu_torch." + name in mods
+    # every tool of the JAX package has its counterpart
+    import mptrac_tpu
+    jax_tools = sorted(m.name.split(".")[-1] for m in pkgutil.iter_modules(
+        [os.path.join(os.path.dirname(mptrac_tpu.__file__), "tools")]))
+    assert len(jax_tools) == 32
+    for name in jax_tools:
+        assert "mptrac_tpu_torch.tools." + name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -50,6 +58,22 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+
+
+def test_exports_cover_the_jax_package():
+    """Every name the JAX package exports, the port exports too (the
+    calendar functions among them); the port adds ``astype_state``."""
+    import mptrac_tpu
+    import mptrac_tpu_torch
+    assert set(mptrac_tpu.__all__) <= set(mptrac_tpu_torch.__all__)
+    assert set(mptrac_tpu_torch.__all__) - set(mptrac_tpu.__all__) == {
+        "astype_state"}
+    for name in mptrac_tpu_torch.__all__:
+        assert hasattr(mptrac_tpu_torch, name), name
+    for t in (0.0, 360547200.5, -86400.75):
+        assert mptrac_tpu_torch.jsec2time(t) == mptrac_tpu.jsec2time(t)
+    assert mptrac_tpu_torch.time2jsec(2011, 6, 5, 13, 7, 9, 0.25) == \
+        mptrac_tpu.time2jsec(2011, 6, 5, 13, 7, 9, 0.25)
 
 
 def test_sources_import_no_jax():

@@ -29,6 +29,17 @@ os.environ.setdefault("LOGLEV", "0")
 CPU4 = [torch.device("cpu")] * 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small shapes: more intra-op threads would only spin, on the cores
+    of the other test workers (module-wide, so that the module fixtures
+    run on one thread too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_cache_categories_match_jax():
     """The port's copy of the Cache field categories is the JAX
     package's, plus the port's own shard slice."""
@@ -123,13 +134,14 @@ def test_rng_part_is_the_slice_of_the_global_draw(rng_type, dtype):
         torch.testing.assert_close(z, nrm[first:first + n], rtol=0, atol=0)
 
 
-def _setup(dtype, extra=()):
+def _setup(dtype, extra=(), slots=1024):
     """The flagship at the tests' size with turbulent and mesoscale
-    diffusion, convection and decay, 1024 slots of which 1000 live."""
+    diffusion, convection and decay, ``slots`` slots of which all but 24
+    live."""
     ctl, clim, met01, atm, cache = flagship.make_setup(
-        1024, 36, 19, 8, extra_args=("TPU_FAST", "0") + tuple(extra),
+        slots, 36, 19, 8, extra_args=("TPU_FAST", "0") + tuple(extra),
         device="cpu", dtype=dtype, phys="conv")
-    return ctl, clim, met01, atm.replace(np=1000), cache
+    return ctl, clim, met01, atm.replace(np=slots - 24), cache
 
 
 @pytest.mark.parametrize("dtype,extra", [
@@ -162,11 +174,105 @@ def test_sharded_step_equals_unsharded_bit_for_bit(dtype, extra):
     assert float((ua.lon - atm.lon).abs().max()) > 0
 
 
-def test_sharded_step_refuses_modules_across_shards():
-    ctl, clim, met01, atm, cache = _setup(torch.float64)
+#: the step's modules that sum parcels of every shard, and one that
+#: runs beside them: (control parameters, quantities besides t and m)
+ACROSS_SHARDS = {
+    "mixing": (("MIXING_TROP", "0.5", "MIXING_STRAT", "0.1"),
+               ("vmr", "aoa")),
+    "oh": (("SPECIES", "SO2", "OH_CHEM_REACTION", "3"), ("Cx",)),
+    "h2o2": (("SPECIES", "SO2", "H2O2_CHEM_REACTION", "1"), ("Cx",)),
+    "tracer": (("TRACER_CHEM", "1", "MIXING_TROP", "0.5",
+                "MIXING_STRAT", "0.1"), ("Cccl4", "Cccl3f", "Cn2o")),
+    "kpp": (("SPECIES", "SO2", "KPP_CHEM", "1", "DT_KPP", "180"),
+            ("Cx", "Coh", "Cho2", "Ch2o2", "mloss_kpp", "Co3p", "Co1d",
+             "Ch")),
+}
+
+
+@pytest.mark.parametrize("case,nshard", [
+    (case, n) for case in ("h2o2", "mixing", "oh", "tracer")
+    for n in (2, 4)] + [("kpp", 2)])
+def test_sharded_step_sums_boxes_over_shards(case, nshard):
+    """With mixing or the chemistry grid on, every box sum takes the
+    parcels of all shards: three steps over 2 and 4 shards (KPP: one
+    step of 104 parcels over 2 shards) equal the unsharded step at rtol
+    1e-12 in float64 (the float sums run in another order), and the
+    quantity that the box sums set moves."""
+    args, extra_q = ACROSS_SHARDS[case]
+    names = ("t", "m") + extra_q
+    qargs = ("NQ", str(len(names))) + tuple(
+        x for i, n in enumerate(names) for x in (f"QNT_NAME[{i}]", n))
+    kpp = case == "kpp"
+    ctl, clim, met01, atm, cache = _setup(torch.float64, qargs + args,
+                                          slots=128 if kpp else 1024)
+    rng_np = np.random.default_rng(5)
+    atm = atm.replace(q={k: torch.from_numpy(rng_np.uniform(
+        0.5, 2.0, atm.npmax) * (1.0 if k in ("t", "m") else 1e-9))
+        for k in names})
+    m = tmesh.make_mesh(nshard, devices=CPU4[:nshard])
+    step = tmesh.make_sharded_step(ctl, clim, m)
+    met_rep = tmesh.replicate_met(met01, m)
+    sa, sc = tmesh.shard_atm(atm, m), tmesh.shard_cache(cache, m)
+    a, c = atm, cache
+    for i in range(1, 2 if kpp else 4):
+        t = i * ctl.dt_mod
+        a, c = pipeline.run_timestep(ctl, clim, met01, a, c, t)
+        sa, sc = step(met_rep, sa, sc, t)
+    assert sc.rng_ctr == c.rng_ctr
+    ua = tmesh.unshard(sa)
+    for name in ("time", "lon", "lat", "p"):
+        torch.testing.assert_close(getattr(ua, name), getattr(a, name),
+                                   rtol=1e-12, atol=0)
+    for k in a.q:
+        torch.testing.assert_close(ua.q[k], a.q[k], rtol=1e-12, atol=0)
+    moved = "Cx" if "Cx" in a.q else "m"
+    assert float(((a.q[moved] - atm.q[moved]) / atm.q[moved]).abs().max()) \
+        > 1e-3
+
+
+def test_sharded_step_raises_a_shards_failure():
+    """A shard that fails releases the others from the barrier, and the
+    step raises its error."""
+    args, extra_q = ACROSS_SHARDS["mixing"]
+    ctl, clim, met01, atm, cache = _setup(torch.float64, args)
     m = tmesh.make_mesh(2, devices=CPU4[:2])
-    for kw, match in ((dict(mixing_trop=1e-3, mixing_strat=1e-6),
-                       "mixing"),
-                      (dict(oh_chem_reaction=2), "chemistry grid")):
-        with pytest.raises(NotImplementedError, match=match):
-            tmesh.make_sharded_step(ctl.replace(**kw), clim, m)
+    step = tmesh.make_sharded_step(ctl, clim, m)
+    met_rep = list(tmesh.replicate_met(met01, m))
+    met_rep[1] = met_rep[1].replace(fields3d={})
+    with pytest.raises(KeyError):
+        step(met_rep, tmesh.shard_atm(atm, m), tmesh.shard_cache(cache, m),
+             ctl.dt_mod)
+
+
+def test_box_reducer_sums_every_round_under_stress():
+    """More shard threads than cores, a short switch interval and many
+    rounds: every shard gets every round's total over all shards (a
+    total overwritten before a shard read it would break this)."""
+    import sys
+    import threading
+    n, rounds = 16, 200
+    reducer = tmesh._BoxReducer(tmesh.make_mesh(
+        n, devices=[torch.device("cpu")] * n))
+    got = [[None] * rounds for _ in range(n)]
+
+    def shard(k):
+        reduce = reducer.shard(k)
+        for r in range(rounds):
+            got[k][r] = reduce(torch.tensor([float(k + 1000 * r)],
+                                            dtype=torch.float64))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=shard, args=(k,))
+                   for k in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    for r in range(rounds):
+        want = sum(float(k + 1000 * r) for k in range(n))
+        assert all(float(got[k][r]) == want for k in range(n)), r

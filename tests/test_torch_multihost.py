@@ -321,3 +321,14 @@ def test_init_distributed_needs_a_device_named_or_present():
     with pytest.raises(NotImplementedError, match="one device"):
         multihost.init_distributed("localhost:1", 1, 0,
                                    local_devices=["cpu", "cpu"])
+
+
+@pytest.mark.parametrize("devices", [["cpu", "cpu"], ["cuda:0", "cuda:1"]],
+                         ids=["cpu", "cuda"])
+def test_init_distributed_takes_one_device_per_process(devices):
+    """A process of the group holds one device: two local devices are
+    refused before the group forms (no machine at hand has two cards to
+    hold such a rank against anything)."""
+    with pytest.raises(NotImplementedError, match="one device per process"):
+        multihost.init_distributed("localhost:1", 2, 0,
+                                   local_devices=devices)

@@ -32,6 +32,17 @@ NSTEPS = 10
 SORT_AT = 6      # a sort before this step (1-based)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small shapes: more intra-op threads would only spin, on the cores
+    of the other test workers (module-wide, so that the module fixtures
+    run on one thread too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def runs():
     """Both packages from one state; the states after each step."""
