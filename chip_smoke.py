@@ -619,17 +619,33 @@ def plant_pbl(torch, met01, atm, seed=1):
             atm.q[name].fill_(v)
 
 
-def module_ms(torch, sim, ts, targets):
-    """ms a step of each ``(owner, name)`` of ``targets`` by CUDA events
-    over the steps ``ts`` (after the timed steps)."""
-    timing = Timing(torch)
-    for owner, name, tag in targets:
-        timing.wrap(owner, name, tag)
+def traced_steps(sim, ts):
+    """The program's spans (``utils.timers.read()``: name, parent, step,
+    host and device ms, self ms) over the steps ``ts``, traced."""
+    from mptrac_tpu_torch.utils import timers
+    timers.reset()
+    prev = timers.tracing(True)
     try:
         sim.run(write_output=False, ts=ts)
+        return timers.read()
     finally:
-        timing.restore()
-    return {tag: sum(timing.ms(tag)) / len(ts) for _, _, tag in targets}
+        timers.tracing(prev)
+        timers.reset()
+
+
+def module_ms(sim, ts, targets):
+    """ms a step of each ``(span, parents, tag)`` of ``targets`` over the
+    steps ``ts`` (after the timed steps): the device time of the
+    program's spans of that name whose parent span is named in
+    ``parents`` (any parent where None)."""
+    recs = traced_steps(sim, ts)
+
+    def parent(r):
+        return None if r["parent"] is None else recs[r["parent"]]["name"]
+
+    return {tag: sum(r["device_ms"] for r in recs if r["name"] == name
+                     and (parents is None or parent(r) in parents))
+            / len(ts) for name, parents, tag in targets}
 
 
 def branch_shares(torch, sim):
@@ -647,7 +663,6 @@ def phase_pbl_path(torch, n, steps, profile):
     (``PBL_QNT``, ``PBL_ARGS``) over the planted boundary layer, at N
     parcels: ms a step, the new modules' ms, the share of parcels in each
     branch of the PBL scheme, peak memory, launch counts."""
-    from mptrac_tpu_torch.physics import decay, pbl, sedi
     sim, counts, stats = drive_flagship(
         torch, "pbl", n, steps, profile,
         ("TPU_FAST", "2") + qnt_args(PBL_QNT) + PBL_ARGS,
@@ -666,12 +681,12 @@ def phase_pbl_path(torch, n, steps, profile):
         raise RuntimeError("pbl path: no in-growth, decay or perturbation")
     dt_mod = sim.ctl.dt_mod
     t_end = dt_mod * total
-    stats["module_ms"] = module_ms(torch, sim, [
+    stats["module_ms"] = module_ms(sim, [
         t_end + dt_mod * (i + 1) for i in range(2)], [
-        (pbl, "module_diff_pbl", "module_diff_pbl"),
-        (pbl, "module_rng3", "module_diff_pbl rng3"),
-        (sedi, "module_sedi", "module_sedi"),
-        (decay, "module_radio_decay", "module_radio_decay")])
+        ("diff_pbl", None, "module_diff_pbl"),
+        ("rng", ("diff_pbl",), "module_diff_pbl rng3"),
+        ("sedi", None, "module_sedi"),
+        ("radio_decay", None, "module_radio_decay")])
     stats["pbl_branch_shares"] = shares
     say(json.dumps({"pbl_path": stats}))
     return sim
@@ -684,7 +699,6 @@ def phase_iso_path(torch, n, steps, profile):
     pressure.  Also the ms of one 3N-normal threefry draw beside a
     Squares draw."""
     from mptrac_tpu_torch.ops import rng
-    from mptrac_tpu_torch.physics import diffusion, isosurf
     p0 = {}
 
     def keep_p(met01, atm):
@@ -710,10 +724,11 @@ def phase_iso_path(torch, n, steps, profile):
                            f", pressures by {p_err:.2e}")
     dt_mod = sim.ctl.dt_mod
     t_end = dt_mod * total
-    stats["module_ms"] = module_ms(torch, sim, [
+    stats["module_ms"] = module_ms(sim, [
         t_end + dt_mod * (i + 1) for i in range(2)], [
-        (isosurf, "module_isosurf", "module_isosurf"),
-        (diffusion, "module_rng3", "module_rng3 (threefry, 2 a step)")])
+        ("isosurf", None, "module_isosurf"),
+        ("rng", ("diff_turb", "diff_meso"),
+         "module_rng3 (threefry, 2 a step)")])
     ctr = c.rng_ctr
     draws = {}
     for tag, kind in (("threefry", 2), ("squares", 1)):
@@ -972,87 +987,29 @@ def phase_slice_vs_cpu(torch):
 
 
 def profile_steps(torch, sim, ts2):
-    """Where a step's device time goes: by module (CUDA events around
-    each module of the pipeline, the random draws counted apart from
-    the modules that call them; returned as ms per step) and by kernel
-    (torch.profiler, printed)."""
+    """Where a step's device time goes: by span of the program
+    (``utils.timers``: each module of the pipeline, the random draws
+    ``rng``, the plain interpolation ``interp``, the sort's parts), the
+    device ms a step of each name and its self ms (less its child spans:
+    a module's without the draws and the interpolation it calls); and by
+    kernel (torch.profiler, printed)."""
     from torch.profiler import ProfilerActivity, profile as prof
 
-    from mptrac_tpu_torch.physics import (advect, bound, chem, convection,
-                                          decay, depo, diffusion, isosurf,
-                                          kpp, meteo, mixing, pbl, position,
-                                          sedi, timesteps)
-    spans = []
-
-    def wrap(mod, name):
-        orig = getattr(mod, name)
-
-        def timed(*a, **k):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = orig(*a, **k)
-            e1.record()
-            spans.append((name, e0, e1))
-            return out
-
-        setattr(mod, name, timed)
-        return mod, name, orig
-
-    patched = [wrap(timesteps, "module_timesteps"),
-               wrap(position, "module_position"),
-               wrap(advect, "module_advect_fused"),
-               wrap(advect, "module_advect"),
-               wrap(diffusion, "module_rng3"),
-               wrap(diffusion, "module_diff_turb"),
-               wrap(diffusion, "module_diff_meso"),
-               wrap(meteo, "module_meteo"),
-               wrap(decay, "module_decay"),
-               wrap(convection, "module_rng"),
-               wrap(convection, "module_convection"),
-               wrap(bound, "module_bound_cond"),
-               wrap(mixing, "module_mixing"),
-               wrap(chem, "module_chem_grid"),
-               wrap(chem, "module_oh_chem"),
-               wrap(chem, "module_h2o2_chem"),
-               wrap(chem, "module_tracer_chem"),
-               wrap(depo, "module_wet_depo"),
-               wrap(depo, "module_dry_depo"),
-               wrap(pbl, "module_diff_pbl"),
-               wrap(sedi, "module_sedi"),
-               wrap(isosurf, "module_isosurf"),
-               wrap(decay, "module_radio_decay"),
-               wrap(kpp, "module_kpp_chem")]
-    try:
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        sim.run(write_output=False, ts=ts2)
-        e1.record()
-        torch.cuda.synchronize()
-    finally:
-        for mod, name, orig in patched:
-            setattr(mod, name, orig)
-    per = {}
-    for name, a, b in spans:
-        per[name] = per.get(name, 0.0) + a.elapsed_time(b) / len(ts2)
-    # the draws run inside the two diffusion modules: take them out
-    # (the PBL scheme's draw is not among them: the scheme imports its
-    # own name of module_rng3)
-    per["module_diff_turb+meso (without rng)"] = (
-        per.pop("module_diff_turb") + per.pop("module_diff_meso")
-        - per["module_rng3"])
-    if "module_convection" in per:
-        # ... and the convection's uniform draws from the convection
-        per["module_convection (without rng)"] = (
-            per.pop("module_convection") - per["module_rng"])
-    per["step"] = e0.elapsed_time(e1) / len(ts2)
+    from mptrac_tpu_torch.utils import timers
+    recs = traced_steps(sim, ts2)
+    per = {"ms": {}, "self_ms": {}}
+    for r in recs:
+        for key, ms in (("ms", r["device_ms"]),
+                        ("self_ms", r["self_device_ms"])):
+            per[key][r["name"]] = per[key].get(r["name"], 0.0) + ms / len(
+                ts2)
 
     ts3 = [ts2[-1] + sim.ctl.dt_mod * (i + 1) for i in range(2)]
     with prof(activities=[ProfilerActivity.CPU,
                           ProfilerActivity.CUDA]) as trace:
         sim.run(write_output=False, ts=ts3)
         torch.cuda.synchronize()
+    timers.reset()
     say(trace.key_averages().table(sort_by="cuda_time_total", row_limit=30))
     return per
 

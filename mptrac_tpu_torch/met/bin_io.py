@@ -26,15 +26,14 @@ depend on the zstd release (they decode to the same bytes).
 
 from __future__ import annotations
 
-import contextlib
 import struct
-import time as _time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from mptrac_tpu_torch.types import MET_2D_FIELDS, MET_3D_FIELDS, Met
+from mptrac_tpu_torch.utils import timers
 
 PCK_ZSTD_MAGIC = 0x50434B5A53544431
 
@@ -53,30 +52,20 @@ BIN_3D = (("z", -1e34, 1e34), ("t", 0, 1e34), ("u", -1e34, 1e34),
 BIN_TYPES = (1, 2, 3, 4, 5, 7, 8)
 _CODEC = {2: "PCK", 3: "ZFP", 4: "ZSTD", 5: "CMS", 7: "SQZ", 8: "LZ4"}
 
-#: the stages of a read whose seconds ``Stages`` adds up
+#: the stages of a read whose seconds ``read_stages`` adds up
 STAGES = ("read", "decode_host", "upload", "decode_device")
 
 
-class Stages:
-    """Seconds by stage of a read, added to ``timings`` (a dict, when
-    given) under the names of ``STAGES``: ``with stages("read"): ...``.
-    A stage that runs on a CUDA device synchronizes at its end, so that
-    its time is its own."""
-
-    def __init__(self, timings: Optional[Dict[str, float]], dev):
-        self.timings = timings
-        self.sync = timings is not None and torch.device(dev).type == "cuda"
-        self.dev = dev
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        t0 = _time.perf_counter()
-        yield
-        if self.timings is not None:
-            if self.sync and name in ("upload", "decode_device"):
-                torch.cuda.synchronize(self.dev)
-            self.timings[name] = (self.timings.get(name, 0.0)
-                                  + _time.perf_counter() - t0)
+def read_stages(timings: Optional[Dict[str, float]], dev):
+    """The stages of one read: ``with stages("read"): ...``, where
+    ``stages = read_stages(timings, dev)``, is the span
+    ``read`` (``utils.timers.stage``), whose host seconds are added to
+    ``timings[name]`` (a dict, when given).  ``upload`` and
+    ``decode_device`` synchronize a CUDA device at their end when
+    ``timings`` is given, so that their time is their own."""
+    return lambda name: timers.stage(
+        name, timings,
+        sync=dev if name in ("upload", "decode_device") else None)
 
 
 def _log_codec(name: str, codec: str, n_values: int, comp_len: int,
@@ -114,7 +103,7 @@ def _pck_compress(arr: np.ndarray, use_zstd: bool, level: int = -3
 
 
 def _pck_decompress(f, nxy: int, nz: int, use_zstd: bool, dev,
-                    stages: Stages) -> torch.Tensor:
+                    stages) -> torch.Tensor:
     """PCK payload -> [nxy, nz] float32 on ``dev``: the samples cross as
     16-bit integers, widened to int32 and scaled in float64 there."""
     with stages("read"):
@@ -150,7 +139,7 @@ def clamp3(name: str, field: torch.Tensor) -> torch.Tensor:
 
 
 def finish_raw(raw: Dict[str, object], dev,
-               stages: Stages) -> Dict[str, object]:
+               stages) -> Dict[str, object]:
     """The raw dict of a container read with its fields on ``dev``:
     host arrays uploaded (the native loader's route), every ``BIN_3D``
     field clamped, the fields that the container does not hold filled as
@@ -246,7 +235,7 @@ def read_met_bin(filename: str, ctl, device="cuda",
     from mptrac_tpu_torch.met import lossy
     from mptrac_tpu_torch.types import resolve_device
     dev = resolve_device(device)
-    stages = Stages(timings, dev)
+    stages = read_stages(timings, dev)
     met_type = ctl.met_type
     if met_type not in BIN_TYPES:
         raise NotImplementedError(f"MET_TYPE {met_type}")

@@ -11,7 +11,6 @@ device itself.
 
 from __future__ import annotations
 
-import time as _time
 from typing import Dict
 
 import numpy as np
@@ -20,6 +19,7 @@ import torch
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.met.bin_io import BIN_TYPES
 from mptrac_tpu_torch.types import Met, _axis_is_arithmetic, resolve_device
+from mptrac_tpu_torch.utils.timers import span, stage
 
 #: every MET_TYPE with a reader: netCDF, the binary containers, GRIB
 MET_TYPES = (0, 6) + BIN_TYPES
@@ -61,13 +61,14 @@ def read_met(filename: str, ctl: Ctl, clim=None, device="cuda",
     """Read one meteo file and run the preprocessing chain
     (reference mptrac_read_met, c:7436).  ``timings``, when given, gets
     the seconds of the stages added: ``read``, ``preprocess`` and
-    ``upload`` for netCDF and GRIB files (``read`` includes the GRIB bit
-    unpacking), ``bin_io.STAGES`` for the binary containers.  ``sel``
+    ``upload`` (synchronized) for netCDF and GRIB files (``read``
+    includes the GRIB bit unpacking), ``bin_io.STAGES`` for the binary
+    containers.  Spans (``utils.timers``): ``read_nc``, ``read_grib`` or
+    ``read_bin``, then ``preprocess`` with a ``process.<stage>`` span a
+    stage, then ``upload``.  ``sel``
     (``parallel.dd.tile_selection``) restricts a netCDF read to a
     horizontal hyperslab, and the chain then runs on that tile only;
     other formats have no hyperslab read and raise."""
-    from mptrac_tpu_torch.met import process
-
     dev = resolve_device(device)
     check_met_type(ctl)
     if sel is not None and ctl.met_type != 0:
@@ -78,19 +79,33 @@ def read_met(filename: str, ctl: Ctl, clim=None, device="cuda",
         # Binary containers store fully preprocessed fields
         # (reference c:7481 applies the chain to nc/grib only)
         from mptrac_tpu_torch.met.bin_io import read_met_bin
-        raw = read_met_bin(filename, ctl, device=dev, timings=timings)
+        with span("read_bin"):
+            raw = read_met_bin(filename, ctl, device=dev, timings=timings)
         if raw["p"][0] < raw["p"][-1]:
             raise ValueError("Pressure levels must be descending!")
         return _to_met(ctl, raw, raw["lon"], raw["lat"], raw["p"],
                        raw["fields2d"], raw["fields3d"], dev)
-    t0 = _time.perf_counter()
     if ctl.met_type == 0:
         from mptrac_tpu_torch.met.read_nc import read_met_nc
-        raw = read_met_nc(filename, ctl, sel=sel)
+        with stage("read_nc", timings, key="read"):
+            raw = read_met_nc(filename, ctl, sel=sel)
     else:
         from mptrac_tpu_torch.met.read_grib import read_met_grib
-        raw = read_met_grib(filename, ctl)
-    t1 = _time.perf_counter()
+        with stage("read_grib", timings, key="read"):
+            raw = read_met_grib(filename, ctl)
+    with stage("preprocess", timings):
+        lon, lat, p, f2, f3 = _preprocess(ctl, clim, raw)
+        _log_ranges(filename, raw, lon, lat, p, f2, f3)
+    with stage("upload", timings, sync=dev):
+        return _to_met(ctl, raw, lon, lat, p, f2, f3, dev)
+
+
+def _preprocess(ctl: Ctl, clim, raw):
+    """The preprocessing chain on a netCDF or GRIB file's fields (in
+    place, on the host; each stage is the span ``process.<stage>``).
+    Returns the axes and the fields (lon, lat, p, f2, f3)."""
+    from mptrac_tpu_torch.met import process
+
     lon = raw["lon"]
     lat = raw["lat"]
     p = raw["p"]
@@ -135,18 +150,7 @@ def read_met(filename: str, ctl: Ctl, clim=None, device="cuda",
     process.detrend(ctl, lon, lat, p, f3)
     if raw.get("npl_ml", 0) and ctl.advect_vert_coord == 1:
         process.monotonize(ctl, raw["hybrid"], f3)
-
-    _log_ranges(filename, raw, lon, lat, p, f2, f3)
-    t2 = _time.perf_counter()
-    met = _to_met(ctl, raw, lon, lat, p, f2, f3, dev)
-    if timings is not None:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t3 = _time.perf_counter()
-        for key, dt in (("read", t1 - t0), ("preprocess", t2 - t1),
-                        ("upload", t3 - t2)):
-            timings[key] = timings.get(key, 0.0) + dt
-    return met
+    return lon, lat, p, f2, f3
 
 
 def _log_ranges(filename, raw, lon, lat, p, f2, f3):

@@ -14,6 +14,7 @@ import numpy as np
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.constants import EPS, G0, H0, MA, P0, RA, RI
 from mptrac_tpu_torch.climatology import clim_tropo_np
+from mptrac_tpu_torch.utils.timers import span
 
 
 def _tvirt(t, h2o):
@@ -55,6 +56,7 @@ def _interp_prof(field, p_levels, p_query):
     return wz * (lo - hi) + hi
 
 
+@span("process.compute_cape")
 def compute_cape(ctl: Ctl, met_time: float, lon, lat, p, f2, f3) -> None:
     if ctl.met_cape != 1:
         return

@@ -34,7 +34,7 @@ uploads the integer stream in its narrow type, and runs the numeric
 stage as torch on ``dev`` (the double ``cumsum``, the inverse block
 transform, the Haar pyramid inverse, ``unscale_from_unit``), in the
 order and precision of the numpy decoder, so that a field decodes to
-the same bits on either device.  ``stages`` (``bin_io.Stages``) adds
+the same bits on either device.  ``stages`` (``bin_io.read_stages``) adds
 each stage's seconds to the caller's timings.
 """
 

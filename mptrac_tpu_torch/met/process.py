@@ -17,6 +17,7 @@ import numpy as np
 
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.constants import EPS, G0, H0, MA, MO3, P0, RA, RE, RI
+from mptrac_tpu_torch.utils.timers import span
 
 _DEG2RAD = np.pi / 180.0
 
@@ -31,6 +32,7 @@ def _zdiff(lnp0, t0, h2o0, lnp1, t1, h2o1):
     return RI / MA / G0 * 0.5 * (tv0 + tv1) * (lnp0 - lnp1)
 
 
+@span("process.extrapolate")
 def extrapolate(f3: Dict[str, np.ndarray]) -> None:
     """Fill below-surface levels downward from the lowest valid level
     (reference read_met_extrapolate, c:9146).  Level 0 is the surface
@@ -53,6 +55,7 @@ def extrapolate(f3: Dict[str, np.ndarray]) -> None:
         f3[name] = np.take_along_axis(f3[name], take, axis=-1)
 
 
+@span("process.polar_winds")
 def polar_winds(lon, lat, f3, coord_type: int) -> None:
     """Average the 89-deg winds into pole rows (reference
     read_met_polar_winds, c:11451)."""
@@ -74,6 +77,7 @@ def polar_winds(lon, lat, f3, coord_type: int) -> None:
         v[:, i90, :] = (-velx[None, :] * slon + vely[None, :] * clon)
 
 
+@span("process.periodic")
 def periodic(lon, f2, f3):
     """Append a wraparound longitude column on global grids (reference
     read_met_periodic, c:11390).  Returns the (possibly extended) lon."""
@@ -86,6 +90,7 @@ def periodic(lon, f2, f3):
     return lon, f2, f3
 
 
+@span("process.geopot")
 def geopot(ctl: Ctl, lon, lat, p, f2, f3) -> None:
     """Hydrostatic geopotential heights + horizontal smoothing
     (reference read_met_geopot, c:9186)."""
@@ -186,6 +191,7 @@ def _locate_irr_vec(xx: np.ndarray, x: np.ndarray) -> np.ndarray:
     return np.clip(i, 0, n - 2).astype(np.int64)
 
 
+@span("process.pv")
 def pv(lon, lat, p, f3, coord_type: int) -> None:
     """Potential vorticity by centered differences (reference
     read_met_pv, c:11513)."""
@@ -253,6 +259,7 @@ def pv(lon, lat, p, f3, coord_type: int) -> None:
     f3["pv"] = pv_.astype(np.float32)
 
 
+@span("process.pbl")
 def pbl(ctl: Ctl, lon, lat, p, f2, f3) -> None:
     """Planetary boundary layer pressure (reference read_met_pbl,
     c:11253): mode 0 = from file (pressure), 1 = from file (height),
@@ -375,6 +382,7 @@ def _pbl_richardson(ctl: Ctl, p, f2, f3):
     return np.where(found, val, p[np.minimum(ip, npl - 1)])
 
 
+@span("process.cloud")
 def cloud(lon, lat, p, f2, f3) -> None:
     """Cloud top/bottom pressure and total column cloud water
     (reference read_met_cloud, c:8982)."""
@@ -409,6 +417,7 @@ def cloud(lon, lat, p, f2, f3) -> None:
     f2["cl"] = cl.astype(np.float32)
 
 
+@span("process.ozone_column")
 def ozone_column(p, f2, f3) -> None:
     """Total column ozone in Dobson units (reference read_met_ozone,
     c:11633)."""
@@ -473,6 +482,7 @@ def _profile_operator(z, z2, spline: bool):
     return A
 
 
+@span("process.tropopause")
 def tropopause(ctl: Ctl, clim, met_time, lon, lat, p, f2, f3) -> None:
     """Tropopause pressure per column (reference read_met_tropo,
     c:11835): 0 none, 1 climatology, 2 cold point, 3 WMO 1st (default),
@@ -591,6 +601,7 @@ def level_definitions(press_level_def: int):
         return d[key][::-1].copy()
 
 
+@span("process.sample_grid")
 def sample_grid(ctl: Ctl, lon, lat, p, f2, f3):
     """Downsampling/smoothing by strides met_dx/dy/dp with triangular
     boxcar met_sx/sy/sp (reference read_met_sample, c:11662)."""
@@ -648,6 +659,7 @@ def sample_grid(ctl: Ctl, lon, lat, p, f2, f3):
     return lon2, lat2, p2, f2, f3
 
 
+@span("process.detrend")
 def detrend(ctl: Ctl, lon, lat, p, f3):
     """Subtract a Gaussian-smoothed background from t/u/v/w
     (reference read_met_detrend, c:9039): FWHM met_detrend [km]."""
@@ -704,6 +716,7 @@ def detrend(ctl: Ctl, lon, lat, p, f3):
         f3[k] = (f3[k] - bgs[k] / wsum[..., None]).astype(np.float32)
 
 
+@span("process.monotonize")
 def monotonize(ctl: Ctl, hybrid, f3):
     """Enforce monotonic zeta/pressure profiles on model levels for
     diabatic advection (reference read_met_monotonize, c:10949)."""
@@ -746,6 +759,7 @@ def monotonize(ctl: Ctl, hybrid, f3):
         f3[name] = (sgn * out).astype(np.float32)
 
 
+@span("process.ml2pl")
 def ml2pl(ctl: Ctl, f3, target_p):
     """Model-level -> pressure-level vertical interpolation using the
     3-D pressure field pl (reference read_met_ml2pl, c:10907)."""

@@ -26,11 +26,11 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time as _time
 
 import numpy as np
 
 from mptrac_tpu_torch.met.bin_io import BIN_2D, BIN_3D
+from mptrac_tpu_torch.utils.timers import stage
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 HOST_SRC = os.path.join(_PKG, "csrc", "host")
@@ -144,29 +144,27 @@ class AsyncMetLoader:
         """Block for the decode and return the raw met dict with host
         arrays (the 3-D fields not clamped yet).  ``timings``, when
         given, gets the seconds blocked (``wait``) and of the copy out of
-        the loader (``copy``) added."""
-        t0 = _time.perf_counter()
+        the loader (``copy``) added; both are spans of those names."""
         time = ctypes.c_double()
         nx, ny, npl = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        if not self._lib.metloader_wait_dims(
+        with stage("wait", timings):
+            ok = self._lib.metloader_wait_dims(
                 self._h, ctypes.byref(time), ctypes.byref(nx),
-                ctypes.byref(ny), ctypes.byref(npl)):
+                ctypes.byref(ny), ctypes.byref(npl))
+        if not ok:
             raise IOError("native met decode failed")
-        t1 = _time.perf_counter()
-        nx, ny, npl = nx.value, ny.value, npl.value
-        lon = np.empty(nx, np.float64)
-        lat = np.empty(ny, np.float64)
-        p = np.empty(npl, np.float64)
-        nxy, n3 = nx * ny, nx * ny * npl
-        f2flat = np.empty(len(BIN_2D) * nxy, np.float32)
-        f3flat = np.empty(len(BIN_3D) * n3, np.float32)
-        if not self._lib.metloader_copy(self._h, lon, lat, p, f2flat,
-                                        f3flat):
+        with stage("copy", timings):
+            nx, ny, npl = nx.value, ny.value, npl.value
+            lon = np.empty(nx, np.float64)
+            lat = np.empty(ny, np.float64)
+            p = np.empty(npl, np.float64)
+            nxy, n3 = nx * ny, nx * ny * npl
+            f2flat = np.empty(len(BIN_2D) * nxy, np.float32)
+            f3flat = np.empty(len(BIN_3D) * n3, np.float32)
+            ok = self._lib.metloader_copy(self._h, lon, lat, p, f2flat,
+                                          f3flat)
+        if not ok:
             raise IOError("native met copy failed")
-        if timings is not None:
-            for key, dt in (("wait", t1 - t0),
-                            ("copy", _time.perf_counter() - t1)):
-                timings[key] = timings.get(key, 0.0) + dt
         f2 = {name: f2flat[i * nxy:(i + 1) * nxy].reshape(nx, ny)
               for i, name in enumerate(BIN_2D)}
         f3 = {name: f3flat[i * n3:(i + 1) * n3].reshape(nx, ny, npl)

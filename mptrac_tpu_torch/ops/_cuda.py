@@ -20,6 +20,8 @@ import subprocess
 import tempfile
 import time
 
+from mptrac_tpu_torch.utils import timers
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "mptrac_tpu_torch")
@@ -37,17 +39,34 @@ SOURCES = ("rk_fused.cu", "sfc_interp.cu", "permute_cols.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: launches per kernel since the last reset (a wrapper adds one where it
-#: launches the kernel and nowhere else); K3's wrapper permute_cols
+#: the device function that each launch count's wrapper launches (the
+#: name a profiler's trace gives the kernel).  K3's wrapper permute_cols
 #: launches permute_gather, or permute_pack and permute_rows, and its
 #: plan launches permute_count; K5 is meso_sigma_table (once per met
 #: pair) and meso_sigma (the gather from that table)
-launch_counts = {"rk_fused_advect": 0, "sfc_interp": 0, "permute_gather": 0,
-                 "permute_pack": 0, "permute_rows": 0, "permute_count": 0,
-                 "uvwt_interp": 0, "meso_sigma_table": 0, "meso_sigma": 0,
-                 "lane_interp_uvwt": 0, "lane_meso_sigma": 0,
-                 "uvw_rows_interp": 0,
-                 "probe_lane": 0, "probe_grid": 0, "probe_small": 0}
+DEVICE_FUNCTIONS = {
+    "rk_fused_advect": "rk_kernel", "sfc_interp": "sfc_kernel",
+    "permute_gather": "gather_kernel", "permute_pack": "pack_kernel",
+    "permute_rows": "rows_kernel", "permute_count": "count_kernel",
+    "uvwt_interp": "uvwt_kernel", "meso_sigma_table": "sigma_table_kernel",
+    "meso_sigma": "meso_gather_kernel", "lane_interp_uvwt": "lane_uvwt_kernel",
+    "lane_meso_sigma": "lane_meso_kernel",
+    "uvw_rows_interp": "uvw_rows_kernel", "probe_lane": "probe_lane_kernel",
+    "probe_grid": "probe_grid_kernel", "probe_small": "probe_small_kernel"}
+
+#: launches per kernel since the last reset (the tracer's counters,
+#: ``utils.timers.counters``): ``launch`` adds one where a wrapper
+#: launches the kernel and nowhere else
+launch_counts = timers.counters
+launch_counts.update(dict.fromkeys(DEVICE_FUNCTIONS, 0))
+
+
+def launch(name: str) -> None:
+    """Count a launch of ``name`` (a key of ``launch_counts``); while
+    tracing, stamp it with its device function.  Called just before the
+    launch."""
+    timers.count(name)
+    timers.stamp(DEVICE_FUNCTIONS[name])
 
 
 def reset_launch_counts() -> None:

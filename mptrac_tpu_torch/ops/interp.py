@@ -11,6 +11,10 @@ Every function works on whole parcel batches: one ``Locator`` holds the
 per-parcel cell indices and weights, computed once and reused across
 fields.  Weight convention as in the reference: ``w`` is the weight of
 the *lower* index, ``val = w * (a[lo] - a[hi]) + a[hi]``.
+
+Each public locate and interpolation function is the span ``interp``
+(``utils.timers``), recorded for the outermost call only, so that the
+span's time is the plain interpolation's whoever calls it.
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ import torch
 
 from mptrac_tpu_torch.ops.thermo import fmod
 from mptrac_tpu_torch.types import Met, grid_axes
+from mptrac_tpu_torch.utils.timers import span
 
 
+@span("interp", outermost=True)
 def locate_reg(xx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Cell index on a regular axis (reference locate_reg, c:3559):
     floor((x - xx[0]) / dx) clipped to [0, n-2]."""
@@ -32,6 +38,7 @@ def locate_reg(xx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(i, 0, n - 2)
 
 
+@span("interp", outermost=True)
 def locate_irr(xx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Cell index on an irregular (ascending or descending) axis
     (reference locate_irr, c:3495): ilo in [0, n-2] with
@@ -97,6 +104,7 @@ class Locator:
     wz: torch.Tensor   # weight of the lower level index
 
 
+@span("interp", outermost=True)
 def locate_3d(met: Met, lon, lat, p) -> Locator:
     """Cell indices + weights for 3-D pressure-level interpolation
     (reference intpol_met_space_3d init branch, c:2995).  ``met`` may
@@ -137,6 +145,7 @@ def _gather3(field: torch.Tensor, ix, iy, iz) -> torch.Tensor:
     return flat[..., idx]
 
 
+@span("interp", outermost=True)
 def interp_3d(field: torch.Tensor, loc: Locator, dtype=None):
     """Trilinear interpolation of one 3-D field at the located cells
     (reference intpol_met_space_3d, c:3025-3046).  ``field``:
@@ -158,6 +167,7 @@ def interp_3d(field: torch.Tensor, loc: Locator, dtype=None):
     return wx * (aux0 - aux1) + aux1
 
 
+@span("interp", outermost=True)
 def interp_2d(field: torch.Tensor, loc: Locator, dtype=None):
     """Bilinear interpolation of a 2-D surface field with the
     reference's nearest-neighbour fallback for non-finite corners
@@ -193,6 +203,7 @@ def time_weight(met01: Met, ts) -> torch.Tensor:
     return ((t1 - ts) / (t1 - t0)).to(met01.lon.dtype)
 
 
+@span("interp", outermost=True)
 def interp_time_3d(met01: Met, name: str, ts, loc: Locator, dtype=None):
     """Time + space interpolation of a stacked 3-D field
     (reference intpol_met_time_3d, c:3112)."""
@@ -201,6 +212,7 @@ def interp_time_3d(met01: Met, name: str, ts, loc: Locator, dtype=None):
     return wt * (var01[0] - var01[1]) + var01[1]
 
 
+@span("interp", outermost=True)
 def interp_time_2d(met01: Met, name: str, ts, loc: Locator, dtype=None):
     """Time + space interpolation of a stacked 2-D surface field with
     non-finite fallback (reference intpol_met_time_2d, c:3141)."""
@@ -256,6 +268,7 @@ def _zeta_level(flat: torch.Tensor, loc: ZetaLocator, k: torch.Tensor):
     return loc.wx1 * (h1 - h0) + h0
 
 
+@span("interp", outermost=True)
 def locate_zeta(met01: Met, heights_name: str, ts, height, lon, lat,
                 dtype=torch.float64) -> ZetaLocator:
     """Cell, weights and level of each parcel for an interpolation in the
@@ -326,6 +339,7 @@ def locate_zeta(met01: Met, heights_name: str, ts, height, lon, lat,
     return loc
 
 
+@span("interp", outermost=True)
 def interp_zeta(met01: Met, loc: ZetaLocator, array_name: str):
     """Field ``array_name`` at the located parcels: the two levels
     around each parcel, weighted by ``wzeta``."""
@@ -339,6 +353,7 @@ def interp_zeta(met01: Met, loc: ZetaLocator, array_name: str):
     return loc.wzeta * (a_top - a_bot) + a_bot
 
 
+@span("interp", outermost=True)
 def interp_4d_zeta(met01: Met, heights_name: str, array_name: str, ts,
                    height, lon, lat, dtype=torch.float64) -> torch.Tensor:
     """4-D interpolation in a column-dependent vertical coordinate

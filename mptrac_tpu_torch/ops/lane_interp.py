@@ -91,11 +91,11 @@ def interp_uvwt_sorted(tables: LaneTables, base, weights):
     lib = _cuda.load()
     out = torch.empty((4, n), dtype=torch.float32, device=pack64.device)
     with torch.cuda.device(pack64.device):
+        _cuda.launch("lane_interp_uvwt")
         code = lib.lane_interp_uvwt(
             pack64.data_ptr(), base.data_ptr(), weights.data_ptr(),
             out.data_ptr(), n, _cuda.current_stream(pack64.device))
     _cuda.check(code, "lane_interp_uvwt")
-    _cuda.launch_counts["lane_interp_uvwt"] += 1
     return out[0:3], out[3], 1.0
 
 
@@ -109,9 +109,9 @@ def meso_sigma_sorted(tables: LaneTables, base):
     lib = _cuda.load()
     out = torch.empty((3, n), dtype=torch.float32, device=pack64.device)
     with torch.cuda.device(pack64.device):
+        _cuda.launch("lane_meso_sigma")
         code = lib.lane_meso_sigma(
             pack64.data_ptr(), base.data_ptr(), out.data_ptr(), n,
             _cuda.current_stream(pack64.device))
     _cuda.check(code, "lane_meso_sigma")
-    _cuda.launch_counts["lane_meso_sigma"] += 1
     return out, 1.0

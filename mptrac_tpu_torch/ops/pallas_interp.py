@@ -68,10 +68,10 @@ def interp_uvw_sorted(pack, base, weights, strides: Tuple[int, int]):
     lib = _cuda.load()
     out = torch.empty((n, 3), dtype=torch.float32, device=pack.device)
     with torch.cuda.device(pack.device):
+        _cuda.launch("uvw_rows_interp")
         code = lib.uvw_rows_interp(
             pack.data_ptr(), base.data_ptr(), weights.data_ptr(),
             out.data_ptr(), n, ox, oy, pack.shape[0],
             _cuda.current_stream(pack.device))
     _cuda.check(code, "uvw_rows_interp")
-    _cuda.launch_counts["uvw_rows_interp"] += 1
     return out, ok

@@ -17,6 +17,9 @@ into ``PRNGKey(0)``, the partitionable bit layout, JAX's uniform and
 normal), on ``int64`` words held in [0, 2^32).  Its bits and uniforms
 are JAX's bit for bit; the normals are ``sqrt(2) * erfinv(u)`` with
 PyTorch's ``erfinv``, which is not XLA's polynomial.
+
+``module_rng`` and ``module_rng3`` are the span ``rng``
+(``utils.timers``), whichever module draws.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from mptrac_tpu_torch.utils.timers import span
 
 #: Squares key (reference mptrac.c:5601, fixed, do not change)
 SQUARES_KEY = 0xC8E4FD154CE32F6D
@@ -282,6 +287,7 @@ def threefry_draw(ctr: int, n: int, shape, normal: bool, dtype,
 _NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
+@span("rng", outermost=True)
 def module_rng(ctl_rng_type: int, ctr: int, n: int, method: int,
                dtype=torch.float64, device="cuda", part=None
                ) -> Tuple[torch.Tensor, int]:
@@ -309,6 +315,7 @@ def module_rng(ctl_rng_type: int, ctr: int, n: int, method: int,
     return rs.to(dtype), adv
 
 
+@span("rng", outermost=True)
 def module_rng3(ctl_rng_type: int, ctr: int, n: int,
                 dtype=torch.float64, device="cuda", part=None
                 ) -> Tuple[torch.Tensor, int]:

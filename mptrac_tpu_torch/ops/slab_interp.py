@@ -111,12 +111,12 @@ def _sfc_cuda(table, basexy, wx, wy, wt, fields):
     out = torch.empty((len(fields), n), dtype=torch.float32,
                       device=table.device)
     with torch.cuda.device(table.device):
+        _cuda.launch("sfc_interp")
         code = lib.sfc_interp(
             table.data_ptr(), basexy.data_ptr(), wx.data_ptr(),
             wy.data_ptr(), wt.data_ptr(), out.data_ptr(), n, nx, ny,
             len(fields), packed, _cuda.current_stream(table.device))
     _cuda.check(code, "sfc_interp")
-    _cuda.launch_counts["sfc_interp"] += 1
     return out
 
 
@@ -201,11 +201,11 @@ def permute_sectors(perm):
     _require_perm_cuda(perm)
     out = torch.zeros(1, dtype=torch.int64, device=perm.device)
     with torch.cuda.device(perm.device):
+        _cuda.launch("permute_count")
         code = _cuda.load().permute_count(
             perm.data_ptr(), perm.shape[0], out.data_ptr(),
             _cuda.current_stream(perm.device))
     _cuda.check(code, "permute_count")
-    _cuda.launch_counts["permute_count"] += 1
     return int(out)
 
 
@@ -262,6 +262,9 @@ def _permute_cuda(cols32, perm, col64, plan):
     src = arr(*[c.data_ptr() for c in cols32])
     dst = arr(*[out32[j].data_ptr() for j in range(k)])
     with torch.cuda.device(dev):
+        for kernel in (("permute_pack", "permute_rows") if plan == "rows"
+                       else ("permute_gather",)):
+            _cuda.launch(kernel)
         code = lib.permute_cols(
             src, dst, k,
             col64.data_ptr() if col64 is not None else None,
@@ -270,9 +273,6 @@ def _permute_cuda(cols32, perm, col64, plan):
             rows.data_ptr() if rows is not None else None,
             _cuda.current_stream(dev))
     _cuda.check(code, "permute_cols")
-    for kernel in (("permute_pack", "permute_rows") if plan == "rows"
-                   else ("permute_gather",)):
-        _cuda.launch_counts[kernel] += 1
     return out32, out64
 
 
@@ -324,12 +324,12 @@ def _uvwt_cuda(table, cell, wx, wy, wz, wt):
     lib = _cuda.load()
     out = torch.empty((4, n), dtype=torch.float32, device=table.device)
     with torch.cuda.device(table.device):
+        _cuda.launch("uvwt_interp")
         code = lib.uvwt_interp(
             table.data_ptr(), cell.data_ptr(), wx.data_ptr(),
             wy.data_ptr(), wz.data_ptr(), wt.data_ptr(), out.data_ptr(),
             n, nx, ny, npl, _cuda.current_stream(table.device))
     _cuda.check(code, "uvwt_interp")
-    _cuda.launch_counts["uvwt_interp"] += 1
     return out
 
 
@@ -405,11 +405,11 @@ def sigma_table(table):
     sigT = torch.empty(_sigma_shape(table), dtype=torch.float32,
                        device=table.device)
     with torch.cuda.device(table.device):
+        _cuda.launch("meso_sigma_table")
         code = lib.meso_sigma_table(table.data_ptr(), sigT.data_ptr(), nx,
                                     ny, npl,
                                     _cuda.current_stream(table.device))
     _cuda.check(code, "meso_sigma_table")
-    _cuda.launch_counts["meso_sigma_table"] += 1
     return sigT
 
 
@@ -432,11 +432,11 @@ def _meso_cuda(cell, sigT):
     lib = _cuda.load()
     out = torch.empty((3, n), dtype=torch.float32, device=sigT.device)
     with torch.cuda.device(sigT.device):
+        _cuda.launch("meso_sigma")
         code = lib.meso_sigma(sigT.data_ptr(), cell.data_ptr(),
                               out.data_ptr(), n,
                               _cuda.current_stream(sigT.device))
     _cuda.check(code, "meso_sigma")
-    _cuda.launch_counts["meso_sigma"] += 1
     return out
 
 

@@ -17,6 +17,7 @@ from mptrac_tpu_torch.ops import interp
 from mptrac_tpu_torch.ops.slab_interp import (PERMUTE_MAX_COLS,
                                               permute_cols, permute_plan)
 from mptrac_tpu_torch.types import Atm, Cache, Met, grid_axes
+from mptrac_tpu_torch.utils.timers import span
 
 _I32_MAX = 2 ** 31 - 1
 
@@ -36,8 +37,14 @@ def sort_key(met: Met, atm: Atm) -> torch.Tensor:
 def module_sort(met: Met, atm: Atm, cache: Cache):
     """Stable argsort by grid cell; permutes atm and the per-particle
     cache arrays consistently and resets the served diagnostic.  Out of
-    place: the state exists twice until the old columns are dropped."""
-    perm = torch.sort(sort_key(met, atm), stable=True).indices
+    place: the state exists twice until the old columns are dropped.
+    Spans: ``sort.key``, ``sort.argsort``, ``sort.plan`` (the count pass
+    and its read-back), ``sort.permute``."""
+    with span("sort.key"):
+        key = sort_key(met, atm)
+    with span("sort.argsort"):
+        perm = torch.sort(key, stable=True).indices
+    del key
 
     # (atm.mask is the prefix arange < np; masked parcels sort to the
     # end, so the permuted state keeps a consistent prefix mask)
@@ -58,16 +65,19 @@ def module_sort(met: Met, atm: Atm, cache: Cache):
             f"the permute kernel takes {PERMUTE_MAX_COLS} per launch")
     cols += [v.contiguous() for _, v in packed]
     # one count pass plans the float32 columns' path for this sort
-    plan = permute_plan(perm) if perm.is_cuda else None
-    out, time2 = permute_cols(cols, perm, atm.time.contiguous(), plan=plan)
-    res = {name: o for (name, _), o in zip(packed, out[3:])}
-    # float64 columns (f64 compute mode) go through the kernel's
-    # float64 slot, one call each, on the gather path: a lone column's
-    # row would be one sector a parcel, as its gather is
-    for name, v in slots:
-        if name not in res:
-            res[name] = permute_cols([], perm, v.contiguous(),
-                                     plan="gather")[1]
+    with span("sort.plan"):
+        plan = permute_plan(perm) if perm.is_cuda else None
+    with span("sort.permute"):
+        out, time2 = permute_cols(cols, perm, atm.time.contiguous(),
+                                  plan=plan)
+        res = {name: o for (name, _), o in zip(packed, out[3:])}
+        # float64 columns (f64 compute mode) go through the kernel's
+        # float64 slot, one call each, on the gather path: a lone
+        # column's row would be one sector a parcel, as its gather is
+        for name, v in slots:
+            if name not in res:
+                res[name] = permute_cols([], perm, v.contiguous(),
+                                         plan="gather")[1]
     atm2 = atm.replace(
         time=time2, lon=res["lon"], lat=res["lat"], p=res["p"],
         q={k: res[("q", k)] for k in atm.q})

@@ -129,11 +129,11 @@ def probe_lane(packT, base, w):
     lib = _cuda.load()
     out = torch.empty((8, n), dtype=torch.float32, device=packT.device)
     with torch.cuda.device(packT.device):
+        _cuda.launch("probe_lane")
         code = lib.probe_lane(packT.data_ptr(), base.data_ptr(), w.data_ptr(),
                               out.data_ptr(), n, packT.shape[1],
                               _cuda.current_stream(packT.device))
     _cuda.check(code, "probe_lane")
-    _cuda.launch_counts["probe_lane"] += 1
     return out
 
 
@@ -156,11 +156,11 @@ def probe_grid(x, G):
     lib = _cuda.load()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
+        _cuda.launch("probe_grid")
         code = lib.probe_grid(x.data_ptr(), out.data_ptr(),
                               x.shape[1] // cp, cp,
                               _cuda.current_stream(x.device))
     _cuda.check(code, "probe_grid")
-    _cuda.launch_counts["probe_grid"] += 1
     return out
 
 
@@ -184,10 +184,10 @@ def probe_small(tab, idx):
     lib = _cuda.load()
     out = torch.empty((8, n), dtype=torch.float32, device=tab.device)
     with torch.cuda.device(tab.device):
+        _cuda.launch("probe_small")
         code = lib.probe_small(tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
                                n, _cuda.current_stream(tab.device))
     _cuda.check(code, "probe_small")
-    _cuda.launch_counts["probe_small"] += 1
     return out
 
 

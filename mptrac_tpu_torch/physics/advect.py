@@ -20,8 +20,10 @@ from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.ops import interp, rk_fused
 from mptrac_tpu_torch.ops.thermo import dx2coord, dy2coord
 from mptrac_tpu_torch.types import Atm, Cache, Met
+from mptrac_tpu_torch.utils.timers import span
 
 
+@span("advect")
 def module_advect(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
                   packT=None):
     """Unfused advection; returns (atm, cache).  ``packT`` is the wind
@@ -34,6 +36,7 @@ def module_advect(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
     return _advect_zeta(ctl, cache, met01, atm), cache
 
 
+@span("advect")
 def module_advect_fused(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
                         cell: rk_fused.CellPack):
     """Fused advect via the single-pass RK kernel (ops.rk_fused):

@@ -17,6 +17,7 @@ from mptrac_tpu_torch.climatology import clim_ts
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.ops import interp, thermo
 from mptrac_tpu_torch.types import Atm, Cache, Clim, Met
+from mptrac_tpu_torch.utils.timers import span
 
 #: quantities the module writes, and the time series of each tracer
 _WANTED = {"m", "vmr", "Cccl4", "Cccl3f", "Cccl2f2", "Cn2o", "Csf6", "aoa"}
@@ -24,6 +25,7 @@ _TRACERS = (("Cccl4", "ccl4"), ("Cccl3f", "ccl3f"), ("Cccl2f2", "ccl2f2"),
             ("Cn2o", "n2o"), ("Csf6", "sf6"))
 
 
+@span("bound")
 def module_bound_cond(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
                       atm: Atm) -> Atm:
     if not set(atm.q) & _WANTED:

@@ -29,6 +29,7 @@ from mptrac_tpu_torch.ops.interp import locate_irr, locate_reg
 from mptrac_tpu_torch.ops.thermo import deg2rad, pressure, rho as rho_air
 from mptrac_tpu_torch.physics.mixing import box_index, box_sum, grid_indices
 from mptrac_tpu_torch.types import Atm, Cache, Clim, Met
+from mptrac_tpu_torch.utils.timers import span
 
 
 def molec_dens(p, t):
@@ -130,6 +131,7 @@ def clim_photo(rate, clim: Clim, p, sza, o3c):
     return torch.clamp(lin(s0, aux0, s1, aux1, sz), min=0.0)
 
 
+@span("chem_grid")
 def module_chem_grid(ctl: Ctl, met01: Met, atm: Atm, t: float) -> Atm:
     """Per-grid-box volume mixing ratio Cx from the binned mass and the
     temperature at the box centre (reference module_chem_grid, c:3885)."""
@@ -202,6 +204,7 @@ def _so2_correction(atm: Atm, a: float, b: float):
     return torch.where(cx > low, a * torch.clamp(cx, min=1e-30) ** b, 1.0)
 
 
+@span("oh_chem")
 def module_oh_chem(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
                    atm: Atm) -> Atm:
     """OH loss chemistry, JPL 19-05 rates (reference c:5335)."""
@@ -231,6 +234,7 @@ def module_oh_chem(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
     return _apply_loss(atm, cache, rate, "mloss_oh")
 
 
+@span("h2o2_chem")
 def module_h2o2_chem(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
                      atm: Atm) -> Atm:
     """Aqueous-phase SO2 oxidation by H2O2 inside clouds
@@ -266,6 +270,7 @@ _TRACER_REACTIONS = (
 )
 
 
+@span("tracer_chem")
 def module_tracer_chem(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
                        atm: Atm) -> Atm:
     """CFC-10/11/12 + N2O photolysis + O(1D) loss (reference c:5889)."""

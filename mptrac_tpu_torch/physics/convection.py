@@ -15,8 +15,10 @@ from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.ops import interp
 from mptrac_tpu_torch.ops.rng import module_rng
 from mptrac_tpu_torch.types import Atm, Cache, Met
+from mptrac_tpu_torch.utils.timers import span
 
 
+@span("convection")
 def module_convection(ctl: Ctl, cache: Cache, met01: Met, atm: Atm):
     rs, ctr = module_rng(ctl.rng_type, cache.rng_ctr, atm.npmax, 0,
                          dtype=atm.lon.dtype, device=atm.lon.device,

@@ -12,6 +12,7 @@ import torch
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.physics.diffusion import tropo_weight
 from mptrac_tpu_torch.types import Atm, Cache, Clim
+from mptrac_tpu_torch.utils.timers import span
 
 _LN2 = math.log(2.0)
 
@@ -26,6 +27,7 @@ LAMBDA = {
 }
 
 
+@span("decay")
 def module_decay(ctl: Ctl, cache: Cache, clim: Clim, atm: Atm) -> Atm:
     """Exponential mass/vmr loss with troposphere/stratosphere
     lifetimes blended across the tropopause (c:4219)."""
@@ -51,6 +53,7 @@ def module_decay(ctl: Ctl, cache: Cache, clim: Clim, atm: Atm) -> Atm:
     return atm.replace(q=q)
 
 
+@span("radio_decay")
 def module_radio_decay(ctl: Ctl, cache: Cache, atm: Atm) -> Atm:
     """Fixed radioactive decay chains, incl. Rn-222 -> Pb-210 in-growth
     (c:5477)."""

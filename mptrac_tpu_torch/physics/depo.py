@@ -15,8 +15,10 @@ from mptrac_tpu_torch.constants import RI
 from mptrac_tpu_torch.ops import interp, thermo
 from mptrac_tpu_torch.physics.chem import _apply_loss, _require_mass_or_vmr
 from mptrac_tpu_torch.types import Atm, Cache, Met
+from mptrac_tpu_torch.utils.timers import span
 
 
+@span("wet_depo")
 def module_wet_depo(ctl: Ctl, cache: Cache, met01: Met, atm: Atm) -> Atm:
     """In-cloud / below-cloud scavenging (c:5963): precipitation rate
     from total column cloud water (Pisso et al. 2019), exponential
@@ -81,6 +83,7 @@ def module_wet_depo(ctl: Ctl, cache: Cache, met01: Met, atm: Atm) -> Atm:
     return _apply_loss(atm, cache, lam, "mloss_wet")
 
 
+@span("dry_depo")
 def module_dry_depo(ctl: Ctl, cache: Cache, met01: Met, atm: Atm) -> Atm:
     """Deposition-velocity mass loss inside the surface layer
     (c:4730)."""

@@ -18,6 +18,7 @@ from mptrac_tpu_torch.ops import interp
 from mptrac_tpu_torch.ops.rng import module_rng3
 from mptrac_tpu_torch.ops.thermo import dx2coord, dy2coord, dz2dp
 from mptrac_tpu_torch.types import Atm, Cache, Clim, Met, grid_axes
+from mptrac_tpu_torch.utils.timers import span
 
 
 def pbl_weight(ctl: Ctl, p, pbl, ps):
@@ -42,6 +43,7 @@ def tropo_weight(ctl: Ctl, clim: Clim, time, lat, p, pt=None):
     return torch.where(p > p0, 1.0, torch.where(p < p1, 0.0, w))
 
 
+@span("diff_turb")
 def module_diff_turb(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
                      atm: Atm, sfcT=None):
     """Langevin random-walk diffusion with well-mixed vertical drift
@@ -156,6 +158,7 @@ def _meso_sigma_exact(met01: Met, ix, iy, iz):
     return sig(f3["u"]), sig(f3["v"]), sig(f3["w"])
 
 
+@span("diff_meso")
 def module_diff_meso(ctl: Ctl, cache: Cache, met01: Met, atm: Atm,
                      packT=None, sig=None, sigT=None):
     """Mesoscale wind fluctuations: AR(1) colored noise scaled to the

@@ -18,6 +18,7 @@ from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.ops import interp
 from mptrac_tpu_torch.ops.interp import locate_irr
 from mptrac_tpu_torch.types import Atm, Cache, Met
+from mptrac_tpu_torch.utils.timers import span
 
 
 def read_balloon(path: str):
@@ -65,6 +66,7 @@ def module_isosurf_init(ctl: Ctl, cache: Cache, met01: Met,
     return cache
 
 
+@span("isosurf")
 def module_isosurf(ctl: Ctl, cache: Cache, met01: Met, atm: Atm) -> Atm:
     """Put every live parcel back on its isosurface (c:4940).  As the
     reference's PARTICLE_LOOP with check_dt 0, this applies to all

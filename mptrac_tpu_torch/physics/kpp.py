@@ -44,6 +44,7 @@ from mptrac_tpu_torch.constants import AVO, MA, RI
 from mptrac_tpu_torch.ops import interp
 from mptrac_tpu_torch.physics.chem import clim_photo, cos_sza, molec_dens
 from mptrac_tpu_torch.types import Atm, Cache, Clim, Met, _map_tensors
+from mptrac_tpu_torch.utils.timers import span
 
 #: parcels per pass of the integration (~20 kB of float64 temporaries
 #: each, the [39, 15] tangents the largest: ~20 GB a pass)
@@ -376,6 +377,7 @@ def _kpp_pass(ctl: Ctl, clim: Clim, met01: Met, time, lon, lat, p, q,
     return steps
 
 
+@span("kpp")
 def module_kpp_chem(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
                     atm: Atm, stats: Optional[dict] = None) -> Atm:
     """Full-chemistry step over DT_KPP (reference module_kpp_chem,

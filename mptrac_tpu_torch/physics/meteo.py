@@ -18,6 +18,7 @@ from mptrac_tpu_torch.physics.chem import clim_oh
 from mptrac_tpu_torch.ops.slab_interp import (SFC_FIELDS, sfc_from_loc,
                                               uvwt_from_loc)
 from mptrac_tpu_torch.types import Atm, Cache, Clim, Met
+from mptrac_tpu_torch.utils.timers import span
 
 #: quantity name -> stacked 2-D met field (straight samplings)
 _Q2D = {"ps": "ps", "ts": "ts", "zs": "zs", "us": "us", "vs": "vs",
@@ -38,6 +39,7 @@ _DERIV3 = ("rho", "vh", "vz", "psat", "psice", "pw", "sh", "rh",
            "tsts", "zeta_d")
 
 
+@span("meteo")
 def module_meteo(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
                  atm: Atm, pack=None, pre3d=None) -> Atm:
     """``pre3d`` supplies 3-D met values already interpolated at the

@@ -19,6 +19,7 @@ from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.ops import thermo
 from mptrac_tpu_torch.physics.diffusion import tropo_weight
 from mptrac_tpu_torch.types import Atm, Clim
+from mptrac_tpu_torch.utils.timers import span
 
 #: quantities subject to mixing (reference c:5209-5218)
 MIX_QUANTITIES = (
@@ -83,6 +84,7 @@ def box_sum(values, idx, nbox: int):
     return total if reduce is None else reduce(total)
 
 
+@span("mixing")
 def module_mixing(ctl: Ctl, clim: Clim, atm: Atm, t: float) -> Atm:
     ix, iy, iz, ok = grid_indices(ctl, atm, t, "mixing")
     idx, nbox = box_index(ctl, atm, ix, iy, iz, ok, ctl.mixing_nx,

@@ -23,6 +23,7 @@ from mptrac_tpu_torch.ops import interp, thermo
 from mptrac_tpu_torch.ops.rng import module_rng3
 from mptrac_tpu_torch.ops.thermo import dx2coord, dy2coord
 from mptrac_tpu_torch.types import Atm, Cache, Met
+from mptrac_tpu_torch.utils.timers import span
 
 #: parcels per pass (a float32 temporary of a pass is 32 MB)
 PBL_CHUNK = 1 << 23
@@ -236,6 +237,7 @@ def _passes(n: int):
         yield s, min(n, s + PBL_CHUNK)
 
 
+@span("diff_pbl")
 def module_diff_pbl(ctl: Ctl, cache: Cache, met01: Met, atm: Atm):
     """One step of the PBL scheme (reference c:4335-4580): draws 3n
     normals (counter + 3n + 1) and moves the active parcels."""

@@ -9,8 +9,10 @@ import torch
 from mptrac_tpu_torch.ops import interp
 from mptrac_tpu_torch.ops.thermo import fmod
 from mptrac_tpu_torch.types import Atm, Cache, Met, grid_axes
+from mptrac_tpu_torch.utils.timers import span
 
 
+@span("position")
 def module_position(cache: Cache, met01: Met, atm: Atm) -> Atm:
     active = (cache.dt != 0.0) & atm.mask
     lon, lat, p = atm.lon, atm.lat, atm.p

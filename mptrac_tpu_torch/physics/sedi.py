@@ -11,8 +11,10 @@ from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.ops import interp
 from mptrac_tpu_torch.ops.thermo import dz2dp, sedi_velocity
 from mptrac_tpu_torch.types import Atm, Cache, Met
+from mptrac_tpu_torch.utils.timers import span
 
 
+@span("sedi")
 def module_sedi(ctl: Ctl, cache: Cache, met01: Met, atm: Atm) -> Atm:
     active = (cache.dt != 0.0) & atm.mask
     loc = interp.locate_3d(met01, atm.lon, atm.lat, atm.p)

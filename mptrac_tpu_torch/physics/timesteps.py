@@ -11,8 +11,10 @@ import torch
 
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.types import Atm, Cache, Met, grid_axes
+from mptrac_tpu_torch.utils.timers import span
 
 
+@span("timesteps")
 def module_timesteps(ctl: Ctl, cache: Cache, met0: Met, atm: Atm,
                      t: float) -> Cache:
     """dt[ip] = t - time[ip] for active parcels, 0 otherwise; parcels

@@ -44,7 +44,7 @@ from mptrac_tpu_torch.physics import pipeline
 from mptrac_tpu_torch.physics.timesteps import init_time_range
 from mptrac_tpu_torch.types import (Atm, Cache, Clim, Met, astype_state,
                                     resolve_device, stack_met)
-from mptrac_tpu_torch.utils.timers import Timers
+from mptrac_tpu_torch.utils.timers import Timers, span
 
 
 def build_pack(ctl: Ctl, met01: Met) -> Optional[MetPack]:
@@ -126,15 +126,17 @@ class MetBuffer:
         if self._loader is not None:
             self._loader.close()
 
+    @span("met.read")
     def _read(self, filename: str) -> Met:
         timings: Dict[str, float] = {"wait": 0.0}
         if self._loader is not None and self._prefetched == filename:
-            from mptrac_tpu_torch.met.bin_io import Stages, finish_raw
+            from mptrac_tpu_torch.met.bin_io import finish_raw, read_stages
             from mptrac_tpu_torch.met.build import _to_met
             raw = self._loader.wait(timings)
             self._prefetched = None
             raw = finish_raw(dict(raw, coord_type=self.ctl.met_coord_type),
-                             self.device, Stages(timings, self.device))
+                             self.device, read_stages(timings,
+                                                      self.device))
             met = _to_met(self.ctl, raw, raw["lon"], raw["lat"], raw["p"],
                           raw["fields2d"], raw["fields3d"], self.device)
             route = "native"
@@ -180,6 +182,7 @@ class MetBuffer:
             self._shift(self._read(get_met_filename(ctl, t, -1)), keep=0)
         return self.pair
 
+    @span("met.shift")
     def _shift(self, new: Met, keep: int):
         """Move snapshot ``keep`` of the pair to the other slot and put
         ``new`` into its place.  The result is a new ``Met`` object over
@@ -288,7 +291,8 @@ class Simulation:
     def _get_pack(self, met01: Met) -> Optional[MetPack]:
         """Gather tables, rebuilt once per met pair (TPU_FAST only)."""
         if self._pack_src is not met01:
-            self._pack = build_pack(self.ctl, met01)
+            with span("pack.build"):
+                self._pack = build_pack(self.ctl, met01)
             self._pack_src = met01
         return self._pack
 
@@ -302,7 +306,7 @@ class Simulation:
         current start time when none is given)."""
         if met01 is None:
             met01 = self.met.get(self.ctl.t_start)
-        with self.timers.timer("MODULE_SORT", "PHYSICS"):
+        with self.timers.timer("MODULE_SORT", "PHYSICS", "sort"):
             self.atm, self.cache = module_sort(met01, self.atm, self.cache)
         self.nsorts += 1
 
@@ -330,14 +334,18 @@ class Simulation:
                 t, ctl.t_stop)
             t += ctl.direction * ctl.dt_mod
 
+    @span("advance", step=True)
     def advance(self, t: float, write_output: bool = True):
         """One step of the run loop at model time ``t``: met
         buffering, optional sort, the timestep, output (reference
-        trac.c:122-160)."""
+        trac.c:122-160).  While tracing (``utils.timers``) it is the
+        root span of a new step index, over ``met.get`` (with
+        ``met.read`` per file and ``met.shift``), ``sort``,
+        ``pack.build``, ``step``, ``output`` and ``checkpoint``."""
         if self.met.swap_due(t):
             # release the old pair's tables before the new pair is read
             self._pack = self._pack_src = None
-        with self.timers.timer("GET_MET", "INPUT"):
+        with self.timers.timer("GET_MET", "INPUT", "met.get"):
             met01 = self.met.get(t)
         if self._first:
             self.atm, self.cache = pipeline.init_modules(
@@ -346,17 +354,20 @@ class Simulation:
         if self.ctl.sort_dt > 0 and (
                 math.fmod(t, self.ctl.sort_dt) == 0 or self._sort_due()):
             self.sort(met01)
-        with self.timers.timer("RUN_TIMESTEP", "PHYSICS"):
+        pack = self._get_pack(met01)
+        with self.timers.timer("RUN_TIMESTEP", "PHYSICS", "step"):
             self.atm, self.cache = pipeline.run_timestep(
                 self.ctl, self.clim, met01, self.atm, self.cache, t,
-                self._flags(t), self._get_pack(met01))
+                self._flags(t), pack)
         if write_output:
-            with self.timers.timer("WRITE_OUTPUT", "OUTPUT"):
+            with self.timers.timer("WRITE_OUTPUT", "OUTPUT", "output"):
                 self.write_output(t)
         if (self.checkpoint_file and self.checkpoint_dt > 0
                 and math.fmod(t, self.checkpoint_dt) == 0):
             from mptrac_tpu_torch.checkpoint import save_checkpoint
-            save_checkpoint(self.checkpoint_file, self.atm, self.cache, t)
+            with span("checkpoint"):
+                save_checkpoint(self.checkpoint_file, self.atm, self.cache,
+                                t)
 
     def close(self):
         """Flush and close output files."""
@@ -405,8 +416,9 @@ def run_trac(dirname: str, ctl_file: str, atm_file: str, args=(),
     dev = resolve_device(device)
     ctl = read_ctl(os.path.join(dirname, ctl_file), args)
     t0 = time.perf_counter()
-    atm = atm_io.read_atm(os.path.join(dirname, atm_file), ctl, dtype=dtype,
-                          device=dev)
+    with span("read_atm"):
+        atm = atm_io.read_atm(os.path.join(dirname, atm_file), ctl,
+                              dtype=dtype, device=dev)
     dt_read = time.perf_counter() - t0
     sim = Simulation(ctl, atm, dirname=dirname, dtype=dtype)
     sim.timers.add("READ_ATM", "INPUT", dt_read)

@@ -273,7 +273,7 @@ def test_decode_ahead_equals_python_reader(tmp_path, mets, kind):
         loader.prefetch(fn, met_type)
         timings = {}
         native = tbin.finish_raw(loader.wait(timings), "cpu",
-                                 tbin.Stages(timings, "cpu"))
+                                 tbin.read_stages(timings, "cpu"))
     finally:
         loader.close()
     assert {"wait", "copy", "upload", "decode_device"} <= set(timings)
