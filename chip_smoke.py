@@ -179,8 +179,9 @@ The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 The ``{"kernels": [...]}`` line lists K1-K7 (K5 as its gather and its
-table build) and P1-P3; K3's entry carries its launches and times on
-the dd path (``dd_path``).
+table build), the three float32 Squares draws (``rng_kernels``) and
+P1-P3; K3's entry carries its launches and times on the dd path
+(``dd_path``).
 
 N is fixed at 100,663,296 parcels (100M rounded up to a multiple of
 2^21, the size the JAX benchmark uses).  ``--np`` and ``--steps`` exist
@@ -433,6 +434,14 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base",
     if c.rng_ctr != want_ctr:
         raise RuntimeError(f"{tag}: rng_ctr {c.rng_ctr}, expected "
                            f"{want_ctr}")
+    # float32 Squares (RNG_TYPE 0 and 1): one kernel launch a draw
+    sq = ctl.rng_type in (0, 1) and a.lon.dtype == torch.float32
+    want_sq = (total * rng3_draws(ctl) * sq, total * conv * sq)
+    got_sq = (counts["squares_normal3"], counts["squares_uniform"])
+    if got_sq != want_sq or counts["squares_pairs"] != 0:
+        raise RuntimeError(f"{tag}: Squares launches (normal3, uniform) "
+                           f"{got_sq}, pairs {counts['squares_pairs']}, "
+                           f"expected {want_sq}, 0")
     want_m = math.exp(-dt_mod / ctl.tdec_trop) ** total
     if phys in ("chem", "full"):
         # OH chemistry and dry deposition take mass beyond the decay
@@ -1298,6 +1307,66 @@ def phase_kernels(torch, sim, counts, usage):
             plain_ms=k3["random"]["count_plain_ms"], bound_ms=b_count,
             bound_by=by_count, library_ms=None,
             ms_by_permutation={k: v["count_ms"] for k, v in k3.items()})))
+    return kernels
+
+
+#: (integer, float) 32-bit instructions an output of a float32 Squares
+#: draw needs at the least.  normal3: the chain (counter add 2, key
+#: product 3, z 2, five squarings with their adds 3 each, the xor 1, two
+#: shifts and two conversions 4; the rotations are register swaps) and
+#: the float steps (two scales and the floor 3, logf 12, -2x 1, sqrtf 6,
+#: the phase 1, cosf 20, the product 1).  A uniform skips the last
+#: squaring and the low word; a pair normal is one such word and half of
+#: the pair's radius and phase, then its cosf or sinf and the product.
+SQUARES_INSTR = {"squares_normal3": (27, 44), "squares_uniform": (21, 1),
+                 "squares_pairs": (21, 33)}
+
+
+def phase_rng_kernels(torch, n):
+    """The float32 Squares draws at the main path's size, each form's
+    kernel (``csrc/squares_rng.cu``) against its plain version on the
+    card, values and counters bit for bit; ms a launch, the plain
+    chain's ms, and the bound: the output bytes, or the instructions at
+    one a lane a cycle (half the float32 FMA peak), the integer ones at
+    half that rate."""
+    from mptrac_tpu_torch.ops import _cuda, rng
+    ctr = (1 << 64) - n                  # the draws wrap at 2^64 inside
+    forms = (("squares_normal3", "squares_normal3_f32", 3 * n),
+             ("squares_uniform", "squares_uniform_f32", n + 1),
+             ("squares_pairs", "squares_normal_f32", n))
+    kernels = []
+    for name, fn, draws in forms:
+        kernel, plain = getattr(rng, fn), getattr(rng, fn + "_plain")
+        before = _cuda.launch_counts[name]
+        got, c = kernel(ctr, n, "cuda")
+        torch.cuda.synchronize()
+        launches = _cuda.launch_counts[name] - before
+        exp, c0 = plain(ctr, n, "cuda")
+        differing = int((got.view(torch.int32)
+                         != exp.view(torch.int32)).sum())
+        del got, exp
+        if launches != 1 or c != c0 or differing:
+            raise RuntimeError(f"{name}: {launches} launches, counter {c} "
+                               f"against {c0}, {differing} values differ "
+                               "from the plain version's")
+        ms = time_ms(lambda: kernel(ctr, n, "cuda"), torch)
+        plain_ms = time_ms(lambda: plain(ctr, n, "cuda"), torch, repeats=2)
+        i_int, i_f32 = SQUARES_INSTR[name]
+        per_instr = 2e3 * draws / PEAK_F32_OPS_S    # ms an instruction
+        b_bytes = 1e3 * 4 * draws / PEAK_BYTES_S
+        b_int, b_all = 2 * per_instr * i_int, per_instr * (i_int + i_f32)
+        bound = max(b_bytes, b_int, b_all)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="mptrac_tpu_torch/csrc/squares_rng.cu",
+            replaces=None, launches=launches, max_abs_err=0.0,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=("bytes" if bound == b_bytes else "integer instructions"
+                      if bound == b_int else "instructions"),
+            library_ms=None, n=n, draws=draws, bound_bytes_ms=b_bytes,
+            bound_integer_ms=b_int, bound_instructions_ms=b_all,
+            instructions_per_draw=[i_int, i_f32]))
+        say(f"[kernels] {name}: " + json.dumps(kernels[-1]))
     return kernels
 
 
@@ -4713,6 +4782,7 @@ def main():
                      counts)
     del sim
     torch.cuda.empty_cache()
+    kernels += phase("rng_kernels", phase_rng_kernels, torch, args.np)
     phase("card_vs_cpu", phase_card_vs_cpu, torch)
     sim, counts = phase("chem_path", phase_chem_path, torch, args.np,
                         args.steps, args.profile)

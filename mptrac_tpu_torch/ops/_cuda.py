@@ -30,12 +30,13 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "mptrac_tpu_torch")
 #: code that the interpolation kernels share
 SOURCES = ("rk_fused.cu", "sfc_interp.cu", "permute_cols.cu",
            "uvwt_interp.cu", "meso_sigma.cu", "lane_interp.cu",
-           "uvw_rows.cu", "probe.cu")
+           "uvw_rows.cu", "probe.cu", "squares_rng.cu")
 
 #: -fmad=false: no multiply-add contraction, so each kernel rounds where
-#: its plain PyTorch version rounds (the kernels are bound by bytes, the
-#: flag costs nothing measurable); -Xptxas -v: registers and spills go
-#: to the build log
+#: its plain PyTorch version rounds (the kernels are bound by bytes, or,
+#: the Squares draws, by integer work that the flag does not touch: it
+#: costs nothing measurable); -Xptxas -v: registers and spills go to the
+#: build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,7 +53,10 @@ DEVICE_FUNCTIONS = {
     "meso_sigma": "meso_gather_kernel", "lane_interp_uvwt": "lane_uvwt_kernel",
     "lane_meso_sigma": "lane_meso_kernel",
     "uvw_rows_interp": "uvw_rows_kernel", "probe_lane": "probe_lane_kernel",
-    "probe_grid": "probe_grid_kernel", "probe_small": "probe_small_kernel"}
+    "probe_grid": "probe_grid_kernel", "probe_small": "probe_small_kernel",
+    "squares_normal3": "squares_normal3_kernel",
+    "squares_uniform": "squares_uniform_kernel",
+    "squares_pairs": "squares_pairs_kernel"}
 
 #: launches per kernel since the last reset (the tracer's counters,
 #: ``utils.timers.counters``): ``launch`` adds one where a wrapper
@@ -191,6 +195,13 @@ def load() -> ctypes.CDLL:
     lib.probe_grid.argtypes = [vp, vp, i64, i32, vp]
     lib.probe_small.restype = i32
     lib.probe_small.argtypes = [vp] * 3 + [i64, vp]
+    u64 = ctypes.c_ulonglong
+    lib.squares_normal3.restype = i32
+    lib.squares_normal3.argtypes = [vp, u64, i64, i64, i64, vp]
+    lib.squares_uniform.restype = i32
+    lib.squares_uniform.argtypes = [vp, u64, i64, i64, vp]
+    lib.squares_pairs.restype = i32
+    lib.squares_pairs.argtypes = [vp, u64, i64, i64, vp]
     return lib
 
 

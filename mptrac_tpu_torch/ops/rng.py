@@ -18,6 +18,14 @@ normal), on ``int64`` words held in [0, 2^32).  Its bits and uniforms
 are JAX's bit for bit; the normals are ``sqrt(2) * erfinv(u)`` with
 PyTorch's ``erfinv``, which is not XLA's polynomial.
 
+On a CUDA device the float32 Squares draws (``squares_uniform_f32``,
+``squares_normal_f32``, ``squares_normal3_f32``) are one launch of a
+hand-written kernel each (``csrc/squares_rng.cu``), the chain in
+registers; their ``*_plain`` versions run it as int64 tensor passes and
+serve CPU tensors.  On the card both give the same values bit for bit:
+the kernel rounds where the plain chain rounds, and both call the CUDA
+math library's ``logf``, ``sqrtf``, ``cosf`` and ``sinf``.
+
 ``module_rng`` and ``module_rng3`` are the span ``rng``
 (``utils.timers``), whichever module draws.
 """
@@ -30,6 +38,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from mptrac_tpu_torch.ops import _cuda
 from mptrac_tpu_torch.utils.timers import span
 
 #: Squares key (reference mptrac.c:5601, fixed, do not change)
@@ -129,14 +138,22 @@ def _uniform_at(ctr: int, start: int, count: int, device):
             + lo32.to(torch.float64)) * (0.5 ** 64)
 
 
-def squares_uniform_f32(ctr: int, n: int, device="cuda", start: int = 0
-                        ) -> Tuple[torch.Tensor, int]:
-    """``n + 1`` float32 uniforms from the same Squares bit stream (fp32
-    compute mode): the top 24 bits of each 64-bit draw, scaled by
-    2^-24.  Same counter advance as ``squares_uniform``.  The chain runs
-    in passes of ``RNG_CHUNK`` draws, which bounds its int64
-    temporaries.  ``start`` shifts the counters (a slice of a longer
-    draw)."""
+def _squares_cuda(name: str, out: torch.Tensor, *args) -> torch.Tensor:
+    """Launch the Squares kernel ``name`` (``csrc/squares_rng.cu``) into
+    ``out``: the counter mod 2^64, then the kernel's int64 sizes."""
+    lib = _cuda.load()
+    with torch.cuda.device(out.device):
+        _cuda.launch(name)
+        code = getattr(lib, name)(out.data_ptr(), *args,
+                                  _cuda.current_stream(out.device))
+    _cuda.check(code, name)
+    return out
+
+
+def squares_uniform_f32_plain(ctr: int, n: int, device="cuda",
+                              start: int = 0) -> Tuple[torch.Tensor, int]:
+    """Plain PyTorch version of ``squares_uniform_f32``: the chain in
+    passes of ``RNG_CHUNK`` draws, which bounds its int64 temporaries."""
     dev = torch.device(device)
     out = torch.empty(n + 1, dtype=torch.float32, device=dev)
     for s in range(0, n + 1, RNG_CHUNK):
@@ -148,15 +165,29 @@ def squares_uniform_f32(ctr: int, n: int, device="cuda", start: int = 0
     return out, (ctr + n + 1) & _M64
 
 
-def squares_normal_f32(ctr: int, n: int, device="cuda", start: int = 0
-                       ) -> Tuple[torch.Tensor, int]:
-    """``n`` float32 Box-Muller normals over the float32 uniform stream
-    (fp32 compute mode; the pairing of ``squares_normal``).  ``start``
-    gives the normals ``start .. start+n-1`` of a longer draw, as
-    ``squares_normal``."""
+def squares_uniform_f32(ctr: int, n: int, device="cuda", start: int = 0
+                        ) -> Tuple[torch.Tensor, int]:
+    """``n + 1`` float32 uniforms from the same Squares bit stream (fp32
+    compute mode): the top 24 bits of each 64-bit draw, scaled by
+    2^-24.  Same counter advance as ``squares_uniform``.  ``start``
+    shifts the counters (a slice of a longer draw).  On the card one
+    launch of ``squares_uniform``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return squares_uniform_f32_plain(ctr, n, dev, start)
+    if n < 0 or start < 0:
+        raise ValueError(f"squares_uniform_f32: n {n}, start {start}")
+    out = torch.empty(n + 1, dtype=torch.float32, device=dev)
+    _squares_cuda("squares_uniform", out, ctr & _M64, start, n + 1)
+    return out, (ctr + n + 1) & _M64
+
+
+def squares_normal_f32_plain(ctr: int, n: int, device="cuda",
+                             start: int = 0) -> Tuple[torch.Tensor, int]:
+    """Plain PyTorch version of ``squares_normal_f32``."""
     m0 = start // 2
     m = (start + n + 1) // 2 - m0             # pairs that cover the range
-    u, _ = squares_uniform_f32(ctr, 2 * m - 1, device, start=2 * m0)
+    u, _ = squares_uniform_f32_plain(ctr, 2 * m - 1, device, start=2 * m0)
     evens = torch.clamp(u[0::2], min=0.5 ** 25)
     odds = u[1::2]
     r = torch.sqrt(-2.0 * torch.log(evens))
@@ -168,20 +199,27 @@ def squares_normal_f32(ctr: int, n: int, device="cuda", start: int = 0
     return out, (ctr + n + 1) & _M64
 
 
-def squares_normal3_f32(ctr: int, n: int, device="cuda",
-                        part: Tuple[int, int] = None
-                        ) -> Tuple[torch.Tensor, int]:
-    """Three component-major float32 normal streams from the Squares
-    counter (fp32 compute mode).
+def squares_normal_f32(ctr: int, n: int, device="cuda", start: int = 0
+                       ) -> Tuple[torch.Tensor, int]:
+    """``n`` float32 Box-Muller normals over the float32 uniform stream
+    (fp32 compute mode; the pairing of ``squares_normal``).  ``start``
+    gives the normals ``start .. start+n-1`` of a longer draw, as
+    ``squares_normal``.  On the card one launch of ``squares_pairs``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return squares_normal_f32_plain(ctr, n, dev, start)
+    if n < 0 or start < 0:
+        raise ValueError(f"squares_normal_f32: n {n}, start {start}")
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    _squares_cuda("squares_pairs", out, ctr & _M64, start, n)
+    return out, (ctr + n + 1) & _M64
 
-    Each (component c, parcel p) takes one 64-bit draw at counter
-    ``ctr + c*n + p``; the Box-Muller radius comes from its high 24
-    bits, the phase from the low 24 bits of the low word.  Counter
-    advance stays ``3n + 1`` like the reference.  The integer chain is
-    bit-identical to the JAX package's; only the transcendentals may
-    differ by ulps between math libraries.  ``part`` = (first, total):
-    the parcels first .. first+n-1 of a draw for ``total`` parcels.
-    """
+
+def squares_normal3_f32_plain(ctr: int, n: int, device="cuda",
+                              part: Tuple[int, int] = None
+                              ) -> Tuple[torch.Tensor, int]:
+    """Plain PyTorch version of ``squares_normal3_f32``: the chain in
+    passes of ``RNG_CHUNK`` draws."""
     dev = torch.device(device)
     first, total = (0, n) if part is None else part
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
@@ -197,6 +235,32 @@ def squares_normal3_f32(ctr: int, n: int, device="cuda",
             del hi, lo
             r = torch.sqrt(-2.0 * torch.log(u_r))
             torch.mul(r, torch.cos(two_pi * u_phi), out=out[c, s:s + cnt])
+    return out, (ctr + 3 * total + 1) & _M64
+
+
+def squares_normal3_f32(ctr: int, n: int, device="cuda",
+                        part: Tuple[int, int] = None
+                        ) -> Tuple[torch.Tensor, int]:
+    """Three component-major float32 normal streams from the Squares
+    counter (fp32 compute mode).
+
+    Each (component c, parcel p) takes one 64-bit draw at counter
+    ``ctr + c*n + p``; the Box-Muller radius comes from its high 24
+    bits, the phase from the low 24 bits of the low word.  Counter
+    advance stays ``3n + 1`` like the reference.  The integer chain is
+    bit-identical to the JAX package's; only the transcendentals may
+    differ by ulps between math libraries.  ``part`` = (first, total):
+    the parcels first .. first+n-1 of a draw for ``total`` parcels.  On
+    the card one launch of ``squares_normal3``.
+    """
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return squares_normal3_f32_plain(ctr, n, dev, part)
+    first, total = (0, n) if part is None else part
+    if n < 0 or first < 0 or first + n > total:
+        raise ValueError(f"squares_normal3_f32: n {n}, part {part}")
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    _squares_cuda("squares_normal3", out, ctr & _M64, first, total, n)
     return out, (ctr + 3 * total + 1) & _M64
 
 

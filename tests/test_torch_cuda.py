@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from mptrac_tpu_torch import flagship
-from mptrac_tpu_torch.ops import (interp, lane_interp, pallas_interp,
-                                  rk_fused, slab_interp)
+from mptrac_tpu_torch.ops import (_cuda, interp, lane_interp,
+                                  pallas_interp, rk_fused, rng, slab_interp)
 from mptrac_tpu_torch.ops.fast_interp import (build_advect_pack,
                                               build_met_pack)
 from mptrac_tpu_torch.ops.sort import module_sort
@@ -250,14 +250,36 @@ def test_lane_meso_sigma_bit_exact(card, order):
                                                              base))
 
 
-def test_cuda_tensor_never_takes_the_plain_version(located):
+def test_cuda_tensor_never_takes_the_plain_version(located, monkeypatch):
     """A CUDA tensor that the kernel does not take raises; it does not
-    fall back."""
+    fall back.  The float32 Squares draws on the card, through their own
+    functions and through ``module_rng``/``module_rng3``, never reach
+    their plain versions, and sizes they do not take raise."""
     table, cell, w4 = located
     with pytest.raises(ValueError, match="int32"):
         slab_interp.interp_uvwt(table, cell.to(torch.int64), w4)
     with pytest.raises(ValueError, match="float32"):
         slab_interp.meso_sigma(table.double(), cell)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain Squares version ran on the card")
+
+    for name in SQUARES_PLAIN.values():
+        monkeypatch.setattr(rng, name, plain)
+    f32 = torch.float32
+    for x in (rng.squares_uniform_f32(5, 10, "cuda")[0],
+              rng.squares_normal_f32(5, 10, "cuda", start=3)[0],
+              rng.squares_normal3_f32(5, 10, "cuda", part=(2, 12))[0],
+              rng.module_rng(1, 5, 10, 0, dtype=f32, device="cuda")[0],
+              rng.module_rng(1, 5, 10, 1, dtype=f32, device="cuda")[0],
+              rng.module_rng3(1, 5, 10, dtype=f32, device="cuda")[0]):
+        assert x.is_cuda and bool(torch.isfinite(x).all())
+    with pytest.raises(ValueError, match="part"):
+        rng.squares_normal3_f32(5, 10, "cuda", part=(3, 12))
+    with pytest.raises(ValueError, match="start"):
+        rng.squares_uniform_f32(5, 10, "cuda", start=-1)
+    with pytest.raises(ValueError, match="n -1"):
+        rng.squares_normal_f32(5, -1, "cuda")
 
 
 @pytest.fixture
@@ -838,3 +860,82 @@ def test_sharded_step_on_the_card_equals_unsharded(gpu):
     for name in ("lon", "lat", "p"):
         assert torch.equal(getattr(ua, name), getattr(a, name)), name
     assert sc.rng_ctr == c.rng_ctr
+
+
+# ------------------------------------------------------------ Squares
+
+#: the kernel form of each float32 Squares draw and its plain version
+SQUARES_PLAIN = {"squares_uniform": "squares_uniform_f32_plain",
+                 "squares_pairs": "squares_normal_f32_plain",
+                 "squares_normal3": "squares_normal3_f32_plain"}
+
+
+def _squares_draws(ctr, n, plain, start=0, part=None):
+    """The three float32 Squares draws of n (uniform, pairs, normal3),
+    kernel or plain, each as (values, advanced counter)."""
+    f = {k: getattr(rng, v if plain else v[:-len("_plain")])
+         for k, v in SQUARES_PLAIN.items()}
+    return {"squares_uniform": f["squares_uniform"](ctr, n, "cuda",
+                                                    start=start),
+            "squares_pairs": f["squares_pairs"](ctr, n, "cuda", start=start),
+            "squares_normal3": f["squares_normal3"](ctr, n, "cuda",
+                                                    part=part)}
+
+
+@pytest.mark.parametrize("n", [1, 3, 1_000_003])
+@pytest.mark.parametrize("ctr", [0, (1 << 63) - 5, (1 << 64) - 3])
+def test_squares_kernels_match_plain(gpu, ctr, n):
+    """One launch a draw; the values and the advanced counters bit for
+    bit: the normals too, since the kernel rounds where the plain chain
+    does and both call the CUDA math library's logf, sqrtf, cosf and
+    sinf.  The counters 2^63 - 5 and 2^64 - 3 cross the int64 sign and
+    the 2^64 wrap inside the draw; n is no multiple of four."""
+    before = dict(_cuda.launch_counts)
+    got = _squares_draws(ctr, n, plain=False)
+    torch.cuda.synchronize()
+    assert {k: _cuda.launch_counts[k] - before[k]
+            for k in SQUARES_PLAIN} == dict.fromkeys(SQUARES_PLAIN, 1)
+    exp = _squares_draws(ctr, n, plain=True)
+    assert {k: _cuda.launch_counts[k] - before[k]
+            for k in SQUARES_PLAIN} == dict.fromkeys(SQUARES_PLAIN, 1)
+    for k in SQUARES_PLAIN:
+        (x, c), (x0, c0) = got[k], exp[k]
+        assert c == c0, k
+        assert x.dtype == torch.float32 and torch.equal(x, x0), k
+
+
+@pytest.mark.parametrize("ctr", [0, (1 << 64) - 3])
+def test_squares_kernel_slices_equal_whole_draw(gpu, ctr):
+    """``part`` and ``start`` give the columns and elements of the whole
+    draw bit for bit, and the whole draw's counter advance; rows that do
+    not start on 16 bytes and ragged tails included."""
+    total = 1_000_003
+    whole = _squares_draws(ctr, total, plain=False)
+    for s, n in ((0, 5), (1, 3), (7, 999_990), (total - 1, 1), (2, 4)):
+        part = _squares_draws(ctr, n, plain=False, start=s, part=(s, total))
+        x, c = part["squares_normal3"]
+        assert torch.equal(x, whole["squares_normal3"][0][:, s:s + n])
+        assert c == whole["squares_normal3"][1]
+        for k in ("squares_uniform", "squares_pairs"):
+            m = n + 1 if k == "squares_uniform" else n
+            x, c = part[k]
+            assert torch.equal(x, whole[k][0][s:s + m]), (k, s, n)
+            assert c == (ctr + n + 1) % (1 << 64)
+
+
+@pytest.mark.parametrize("phys,want", [
+    ("base", {"squares_normal3": 2, "squares_uniform": 0}),
+    ("chem", {"squares_normal3": 2, "squares_uniform": 1})])
+def test_squares_launches_per_step(gpu, phys, want):
+    """A float32 step draws with one launch a draw: the turbulent and
+    the mesoscale diffusion one normal3 each, convection one uniform;
+    the pair normals none."""
+    from mptrac_tpu_torch import sim
+    ctl, clim, met01, atm, cache = flagship.make_setup(
+        50_000, nx=36, ny=19, nz=8, device="cuda", phys=phys)
+    s = sim.Simulation(ctl, atm, clim, met=sim.FixedMet(met01), cache=cache)
+    _cuda.reset_launch_counts()
+    s.run(write_output=False, ts=[180.0 * (i + 1) for i in range(3)])
+    torch.cuda.synchronize()
+    assert {k: _cuda.launch_counts[k] for k in SQUARES_PLAIN} == {
+        "squares_pairs": 0, **{k: 3 * v for k, v in want.items()}}

@@ -197,3 +197,70 @@ def test_module_rng_normal(dtype, n):
     atol = 4e-6 if dtype == "float32" else 5e-7
     np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=0,
                                atol=atol)
+
+
+#: the float32 Squares draws of the CPU as the int64 chain gave them
+#: before the card had its own kernel: per counter, the uniforms'
+#: float32 bit patterns (7 from start 2), the pair normals (5 from
+#: start 3) and the normal3 columns 1..3 of a draw for 5 parcels, each
+#: with its advanced counter
+F32_DRAWS = {
+    0: (["3f6ee77e", "3f79a1dc", "3f3570b3", "3f7278e3", "3eed0208",
+         "3f2107c4", "3eaa78de"], 7,
+        [-0.057870130985975266, 0.7844433188438416, -0.27046439051628113,
+         -0.8551560640335083, -0.8995387554168701], 6,
+        [[-0.30278095602989197, 0.35691407322883606, 0.22439734637737274],
+         [-0.41512054204940796, -0.9404327869415283, -0.003837419208139181],
+         [0.8096364736557007, -0.7343905568122864, 0.6035516858100891]], 16),
+    (1 << 63) - 5: (
+        ["3db3c5e8", "3ee7c674", "3f616110", "3e891344", "3f7ae98d",
+         "3f44466d", "3f76f70b"], (1 << 63) + 2,
+        [0.6461498141288757, -0.056099556386470795, 0.5016368627548218,
+         0.020985612645745277, -0.19926735758781433], (1 << 63) + 1,
+        [[0.6829137802124023, -0.9309220314025879, -1.104055643081665],
+         [0.17252770066261292, 0.24971911311149597, -0.18829025328159332],
+         [-1.1514732837677002, -0.8845455646514893, 0.5163291096687317]],
+        (1 << 63) + 11),
+    (1 << 64) - 3: (
+        ["3f23c3ef", "3f000c82", "3ebe9e6c", "3f6ee77e", "3f79a1dc",
+         "3f3570b3", "3f7278e3"], 4,
+        [-0.001133661367930472, 1.2837969064712524, -0.572680652141571,
+         -0.05752253532409668, -0.21695221960544586], 3,
+        [[1.1053812503814697, 0.22567206621170044, 0.358453631401062],
+         [0.22439734637737274, -0.6570439338684082, 0.28367337584495544],
+         [-0.003837419208139181, -1.2443307638168335, -0.2581064701080322]],
+        13),
+}
+
+
+@pytest.mark.parametrize("ctr", sorted(F32_DRAWS))
+def test_f32_draws_on_the_cpu_stay_plain(ctr, monkeypatch):
+    """On the CPU the float32 Squares draws run the plain chain: the
+    kernel library is never loaded, the uniforms and counters are the
+    ones recorded bit for bit, and the normals within 4e-6 (log, sqrt,
+    cos and sin of one CPU math library, as test_module_rng3)."""
+    from mptrac_tpu_torch.ops import _cuda
+
+    def no_load():
+        raise AssertionError("the CPU draw loaded the CUDA kernels")
+
+    monkeypatch.setattr(_cuda, "load", no_load)
+    u_bits, cu, pairs, cp, n3, c3 = F32_DRAWS[ctr]
+    u, c = trng.squares_uniform_f32(ctr, 6, "cpu", start=2)
+    assert [f"{v & 0xFFFFFFFF:08x}" for v in
+            u.view(torch.int32).tolist()] == u_bits
+    assert c == cu
+    x, c = trng.squares_normal_f32(ctr, 5, "cpu", start=3)
+    np.testing.assert_allclose(x.numpy(), pairs, rtol=0, atol=4e-6)
+    assert c == cp
+    x, c = trng.squares_normal3_f32(ctr, 3, "cpu", part=(1, 5))
+    np.testing.assert_allclose(x.numpy(), n3, rtol=0, atol=4e-6)
+    assert c == c3
+    for method in (0, 1):
+        x, c = trng.module_rng(1, ctr, 6, method, dtype=torch.float32,
+                               device="cpu", part=(2, 9))
+        assert x.device.type == "cpu" and c == (ctr + 10) % (1 << 64)
+    x, c = trng.module_rng3(1, ctr, 3, dtype=torch.float32, device="cpu",
+                            part=(1, 5))
+    np.testing.assert_allclose(x.numpy(), n3, rtol=0, atol=4e-6)
+    assert c == c3
