@@ -1,9 +1,12 @@
 """What decides ``correct``: the timed path's products against the
-plain reference (``reference.py``).
+configuration's reference (``references/<name>.py``, passed in as
+``ref``; ``references/plain.py`` by default).
 
-* ``Capture``: the state of sampled parcel slots before and after the
-  checked steps (in the period after the window), gathered on the
-  device into one small block and copied to the host.
+* ``unmodelled``: the configuration's control keys and values that the
+  reference does not model (the run is refused before it starts).
+* ``sample``: the state of sampled parcel slots, gathered on the device
+  into one small block and copied to the host (the driver takes it
+  before and after the checked steps, in the period after the window).
 * ``state_hash``: an order-free hash of every parcel of the state, taken
   before and after each sort of that period (a sort that loses,
   duplicates or mixes parcels changes it).
@@ -25,39 +28,43 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchmark import reference as ref
-
-#: MPTRAC's defaults of the control parameters the reference reads
-#: (mptrac.c read_ctl), and the SO2 preset of SPECIES
-CTL_DEFAULTS = {
-    "dt_met": 3600.0, "turb_pbl_trans": 0.0, "turb_dx_pbl": 50.0,
-    "turb_dx_trop": 50.0, "turb_dx_strat": 0.0, "turb_dz_pbl": 0.0,
-    "turb_dz_trop": 0.0, "turb_dz_strat": 0.1, "turb_mesox": 0.16,
-    "turb_mesoz": 0.16, "conv_mix_pbl": 0, "conv_cape": -999.0,
-    "conv_pbl_trans": 0.0, "tdec_trop": 0.0, "tdec_strat": 0.0,
-    "oh_chem_reaction": 0, "oh_chem": (0.0, 0.0, 0.0, 0.0),
-    "h2o2_chem_reaction": 0, "wet_depo_ic_a": 0.0, "wet_depo_ic_b": 0.0,
-    "wet_depo_bc_a": 0.0, "wet_depo_bc_b": 0.0,
-    "wet_depo_pre": (0.5, 0.36), "wet_depo_ic_ret_ratio": 1.0,
-    "wet_depo_bc_ret_ratio": 1.0, "dry_depo_vdep": 0.0,
-    "dry_depo_dp": 30.0, "t_start": 0.0, "t_stop": 0.0,
-}
-SPECIES = {"SO2": {"oh_chem_reaction": 3,
-                   "oh_chem": (2.9e-31, 4.1, 1.7e-12, -0.2)}}
+#: MPTRAC's earth radius [km] (mptrac.h RE): the yardstick of ``pos_km``,
+#: and the radius of the plain reference (``reference.py``)
+RE = 6367.421
 
 
-def ctl_values(pairs: List[str]) -> dict:
-    """The reference's parameters from the configuration's ``KEY VALUE``
-    list (the keys MPTRAC's control file names)."""
-    kv = dict(zip(pairs[0::2], pairs[1::2]))
-    out = dict(CTL_DEFAULTS)
-    out.update(SPECIES.get(kv.get("SPECIES", "-"), {}))
-    for key, val in kv.items():
-        k = key.lower()
-        if k == "t_stop":
-            out["t_stop"] = float(val)
-        elif k in out and not isinstance(out[k], tuple):
-            out[k] = type(out[k])(float(val))
+def __getattr__(name: str):
+    """``CTL_DEFAULTS`` and ``SPECIES``: the plain reference's (its
+    defaults of MPTRAC's control parameters, the SO2 preset of
+    SPECIES), under the names they had here."""
+    if name in ("CTL_DEFAULTS", "SPECIES"):
+        from benchmark import manifest
+        return getattr(manifest.reference({}), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def _same_value(a: str, b: str) -> bool:
+    try:
+        return float(a) == float(b)
+    except ValueError:
+        return a == b
+
+
+def unmodelled(cfg: dict, ref) -> List[str]:
+    """The ``KEY VALUE`` entries of configuration ``cfg`` (its ``ctl`` and
+    its ``clim_files``) that reference ``ref`` models neither as physics
+    (``ref.MODELS``, the key with any value or one of the values listed)
+    nor as the program's path (``ref.PATH_KEYS``)."""
+    pairs = cfg["ctl"]
+    entries = dict(zip(pairs[0::2], pairs[1::2]), **cfg.get("clim_files", {}))
+    out = []
+    for key, val in entries.items():
+        if key in ref.PATH_KEYS:
+            continue
+        allowed = ref.MODELS.get(key, ())
+        if allowed is not None and not any(_same_value(val, a)
+                                           for a in allowed):
+            out.append(f"{key} {val}")
     return out
 
 
@@ -72,24 +79,15 @@ def _columns(atm, cache) -> Dict[str, torch.Tensor]:
             "v": cache.uvwp[1], "w": cache.uvwp[2]}
 
 
-class Capture:
-    """Sampled slots' state: gathered on the device into one small
-    float64 block (every column's values exact) and copied to the host
-    (a wait for the device at this step, of a few hundred kB)."""
-
-    def __init__(self, slots: np.ndarray, device):
-        self.idx = torch.from_numpy(slots).to(device)
-        self.taken: List[dict] = []
-
-    def take(self, sim, label: dict) -> None:
-        cols = _columns(sim.atm, sim.cache)
-        block = torch.stack([torch.index_select(cols[k], 0, self.idx)
-                             .to(torch.float64) for k in STATE_KEYS]).cpu()
-        self.taken.append(dict(label, state=dict(zip(STATE_KEYS, block)),
-                               ctr=sim.cache.rng_ctr))
-
-    def free(self):
-        self.idx = None
+def sample(atm, cache, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The state of the parcel slots ``idx`` (a tensor on the state's
+    device): gathered on the device into one small float64 block (every
+    column's values exact) and copied to the host (a wait for the device
+    at this step, of a few hundred kB)."""
+    cols = _columns(atm, cache)
+    block = torch.stack([torch.index_select(cols[k], 0, idx)
+                         .to(torch.float64) for k in STATE_KEYS]).cpu()
+    return dict(zip(STATE_KEYS, block))
 
 
 # ----------------------------------------------------------------- hash
@@ -163,7 +161,7 @@ def gaps(got: dict, exp) -> Dict[str, float]:
     dlon = torch.remainder(g["lon"] - e["lon"] + 180.0, 360.0) - 180.0
     dlat = g["lat"] - e["lat"]
     coslat = torch.cos(e["lat"] * (math.pi / 180.0))
-    pos = torch.sqrt(dlat ** 2 + (dlon * coslat) ** 2) * (math.pi * ref.RE
+    pos = torch.sqrt(dlat ** 2 + (dlon * coslat) ** 2) * (math.pi * RE
                                                          / 180.0)
     out = {
         "pos_km": _max(pos),
@@ -191,10 +189,11 @@ _NUMBER_OF = {"lon": "pos_km", "lat": "pos_km", "p": "p_rel", "m": "m_rel",
               "time": "time_abs"}
 
 
-def step_gaps(pairs: List[tuple], ctl: dict, met_for, clim, total: int,
-              slots: torch.Tensor, dtype=torch.float64) -> List[dict]:
+def step_gaps(ref, pairs: List[tuple], ctl: dict, met_for, clim,
+              total: int, slots: torch.Tensor,
+              dtype=torch.float64) -> List[dict]:
     """For each checked step (before, after): the gaps of the program's
-    ``after`` from the reference's step of ``before`` computed in
+    ``after`` from reference ``ref``'s step of ``before`` computed in
     ``dtype``, and of the reference in ``dtype`` against float64 when
     ``dtype`` is not float64 (the control)."""
     out = []
@@ -212,16 +211,17 @@ def step_gaps(pairs: List[tuple], ctl: dict, met_for, clim, total: int,
     return out
 
 
-def ingest_gaps(pair_fields: dict, pair_times, expected: List[dict],
+def ingest_gaps(pair_fields: dict, pair_times, expected: List[tuple],
                 exp_times) -> Dict[str, float]:
-    """``met_rel``: the largest relative gap of the program's pair (u, v,
-    w, t, ps, pbl; numpy [2, ...]) from the fields the reference derived
-    from the pair's two files; ``met_time``: the gap of the pair's
+    """``met_rel``: the largest relative gap of the program's pair (the
+    fields the reference ingests; numpy [2, ...]) from the fields the
+    reference derived from the pair's two files (snapshots ``(lon, lat,
+    p, fields2d, fields3d)``); ``met_time``: the gap of the pair's
     times."""
     worst = 0.0
     for name, got in pair_fields.items():
         for s in (0, 1):
-            e = expected[s]["f3"].get(name, expected[s]["f2"].get(name))
+            e = expected[s][4].get(name, expected[s][3].get(name))
             g = got[s].astype(np.float64)
             e = e.astype(np.float64)
             if g.shape != e.shape:

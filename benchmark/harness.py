@@ -1,18 +1,17 @@
 """One run of one cell: set-up, warm-up, the timed window, the checks.
 
-The program under test is ``mptrac_tpu_torch``, driven through its own
-entry points: ``config.read_ctl``, ``types.Atm`` / ``Cache`` / ``Met``,
-``sim.Simulation`` with ``sim.FixedMet`` (met in memory) or its default
-``sim.MetBuffer`` (netCDF files), and ``Simulation.advance`` step by
-step (the run loop of ``Simulation.run``: sort when due, met swap,
-``pipeline.run_timestep``).
+The cell's workload names its driver (``drivers/<name>.py``), which
+builds the program's state on the cell's cards and advances it a step at
+a time; its configuration names its met generator (``mets/<name>.py``)
+and its reference (``references/<name>.py``).  ``manifest`` finds the
+three by name.
 
 The window holds whole periods of the cell's slowest recurring event
 (``period_s``: the sort interval, or the met interval): it starts at a
 period's first step and ends with the period in which ``--seconds`` run
 out.  It holds the program's steps alone.  One more period follows on
-the same ``Simulation``, with the checks: the sampled slots' state
-around steps drawn from the seed, and the hash around each sort.
+the same state, with the checks: the sampled slots' state around steps
+drawn from the seed, and the hash around each sort.
 """
 
 from __future__ import annotations
@@ -30,7 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from benchmark import checks, inputs, manifest, reference as ref, tracing
+from benchmark import checks, inputs, manifest, tracing
+from benchmark.manifest import RunError
 
 #: top-level module names that no run may have loaded: JAX, and the JAX
 #: package with its benchmark, smoke script and tools
@@ -44,10 +44,6 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "mptrac_tpu", "bench", "chip_smoke",
 TRACE_S = 12.0
 
 
-class RunError(RuntimeError):
-    """A run that cannot give a result (printed, exit code 2)."""
-
-
 def forbidden_modules() -> list:
     tops = {name.split(".", 1)[0] for name in list(sys.modules)}
     return sorted(tops & set(FORBIDDEN))
@@ -57,44 +53,43 @@ def _cache_dir(*parts) -> str:
     return os.path.join(manifest.HERE, "cache", *parts)
 
 
-def build_ctl_args(cfg: dict, wl: dict, met_base: Optional[str]) -> list:
+def _clim_files(cfg: dict) -> dict:
+    """The configuration's climatology files: key -> absolute path."""
+    return {key: os.path.join(manifest.HERE, "data", name)
+            for key, name in cfg.get("clim_files", {}).items()}
+
+
+def met_from_files(met_cfg: dict, gen) -> bool:
+    """Whether the cell's met is a series of files of generator ``gen``
+    (``source`` ``files``, or the format ``gen.FORMAT`` that it writes)
+    or held in memory (``memory``); any other source is refused."""
+    src = met_cfg["source"]
+    if src == "memory":
+        return False
+    fmt = getattr(gen, "FORMAT", None)
+    if src == "files" or (fmt is not None and src == fmt):
+        return True
+    raise RunError(f"met source {src!r}: 'memory' or 'files'"
+                   + (f" (or {fmt!r}, the format of its met generator)"
+                      if fmt is not None else ""))
+
+
+def build_ctl_args(cfg: dict, wl: dict, met_base: Optional[str],
+                   met_ctl) -> list:
     """The control parameters (``KEY VALUE``) of a cell: the
     configuration's, its climatology files made absolute, and the met
-    source's."""
+    source's (``met_base``: the base name of the met files, None for
+    met in memory; ``met_ctl``: the pairs that read the generator's
+    files)."""
     args = list(cfg["ctl"])
-    for key, name in cfg.get("clim_files", {}).items():
-        args += [key, os.path.join(manifest.HERE, "data", name)]
-    met = wl["met"]
-    if met["source"] == "netcdf":
-        args += ["METBASE", met_base, "DT_MET", str(met["dt_met"]),
-                 "MET_TYPE", "0"]
+    for key, path in _clim_files(cfg).items():
+        args += [key, path]
+    if met_base is not None:
+        args += ["METBASE", met_base, "DT_MET", str(wl["met"]["dt_met"]),
+                 *met_ctl]
     else:
         args += ["METBASE", "-"]
     return args
-
-
-def _program_met(arrays, t0: float, device):
-    from mptrac_tpu_torch.types import Met, _axis_is_arithmetic
-    lon, lat, p, f2, f3 = arrays
-
-    def axis(a):
-        return torch.from_numpy(np.asarray(a, np.float64)).to(device)
-
-    def fld(a):
-        return torch.from_numpy(a).to(device)
-
-    return Met(time=float(t0), lon=axis(lon), lat=axis(lat), p=axis(p),
-               hybrid=torch.zeros(p.size, dtype=torch.float64,
-                                  device=device),
-               fields2d={k: fld(v) for k, v in f2.items()},
-               fields3d={k: fld(v) for k, v in f3.items()}, coord_type=0,
-               npl_ml=0, reg_lon=_axis_is_arithmetic(lon),
-               reg_lat=_axis_is_arithmetic(lat), lon_periodic=True)
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def run(cell: str, seed: int, seconds: float, trace: bool,
@@ -111,6 +106,14 @@ def run(cell: str, seed: int, seconds: float, trace: bool,
     cfg = manifest.config(wl["config"])
     if sizes:
         cfg = dict(cfg, **sizes)
+    ref = manifest.reference(cfg)
+    bad = checks.unmodelled(cfg, ref)
+    if bad:
+        raise RunError(f"the reference {manifest.name_of('references', cfg)}"
+                       f" does not model {', '.join(bad)}")
+    gen = manifest.met_generator(cfg)
+    files = met_from_files(wl["met"], gen)
+    drv_mod = manifest.driver(wl)
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -118,61 +121,29 @@ def run(cell: str, seed: int, seconds: float, trace: bool,
         if torch.cuda.device_count() < wl["chips"]:
             raise RunError(f"{torch.cuda.device_count()} cards, the cell "
                            f"asks for {wl['chips']}")
-        torch.cuda.set_device(0)
-        torch.cuda.reset_peak_memory_stats(dev)
 
-    from mptrac_tpu_torch import config as p_config
-    from mptrac_tpu_torch import sim as p_sim
-    from mptrac_tpu_torch.climatology import read_clim
-    from mptrac_tpu_torch.types import (Atm, Cache, astype_state,
-                                        stack_met)
-
-    if dev.type == "cuda":
-        from mptrac_tpu_torch.ops import _cuda
-        _cuda.load()             # builds the kernels on a first run
     grid = cfg["grid"]
     n = int(cfg["n_parcels"])
     met_cfg = wl["met"]
-    met_base = None
-    if met_cfg["source"] == "netcdf":
+    dt_met = float(met_cfg["dt_met"])
+    met_base = snaps = None
+    if files:
         gkey = "x".join(str(grid[k]) for k in ("nx", "ny", "nz"))
-        met_base = inputs.met_series(
-            _cache_dir("met", f"{wl['config']}_{gkey}"), grid,
-            cfg["met"], float(met_cfg["dt_met"]), int(met_cfg["files"]))
-    args = build_ctl_args(cfg, wl, met_base)
-    from mptrac_tpu_torch.utils import log as p_log
-    p_log.set_level(0)
-    ctl = p_config.read_ctl(None, args)
-    clim = read_clim(ctl, device=dev)
-    f32 = torch.float32
-    if met_cfg["source"] == "memory":
-        arrays = inputs.wind_met(grid["nx"], grid["ny"], grid["nz"],
-                                 **cfg["met"])
-        pair = stack_met(_program_met(arrays, 0.0, dev),
-                         _program_met(arrays, float(met_cfg["dt_met"]),
-                                      dev))
-        pair = astype_state(met=pair, dtype=f32)
-        met_src = p_sim.FixedMet(pair)
-        del pair
+        gen_name = manifest.name_of("mets", cfg)
+        if gen_name != manifest.NAMED_BY["mets"][1]:
+            gkey += "_" + gen_name
+        met_base = gen.series(_cache_dir("met", f"{wl['config']}_{gkey}"),
+                              grid, cfg["met"], dt_met,
+                              int(met_cfg["files"]))
     else:
-        arrays = None
-        met_src = None       # Simulation's own MetBuffer over METBASE
-    lon, lat, p = inputs.draw_parcels(n, seed, cfg["parcels"], dev)
-    atm = Atm(time=torch.zeros(n, dtype=torch.float64, device=dev), p=p,
-              lon=lon, lat=lat,
-              q={"t": torch.zeros(n, dtype=f32, device=dev),
-                 "m": torch.ones(n, dtype=f32, device=dev)}, np=n)
-    del lon, lat, p
-    cache = Cache.zeros(n, dtype=f32, iso_npmax=1, device=dev)
-    simu = p_sim.Simulation(ctl, atm, clim, met=met_src, cache=cache,
-                            dtype=f32)
-    del atm, cache, met_src
-    ctl = simu.ctl
+        snaps = gen.snapshots(grid, cfg["met"], (0.0, dt_met))
+    args = build_ctl_args(cfg, wl, met_base, gen.CTL)
+    drv = drv_mod.Driver(cfg, wl, args, snaps, seed, dev)
+    ctl = drv.ctl
     dt_mod = ctl.dt_mod
     period = int(round(float(wl["period_s"]) / dt_mod))
-    dt_met = float(met_cfg["dt_met"])
-    t_last = (float(met_cfg["files"] - 1) * dt_met
-              if met_cfg["source"] == "netcdf" else float(ctl.t_stop))
+    t_last = (float(met_cfg["files"] - 1) * dt_met if files
+              else float(ctl.t_stop))
 
     def t_of(i):
         return ctl.t_start + i * dt_mod
@@ -183,72 +154,66 @@ def run(cell: str, seed: int, seconds: float, trace: bool,
     # ---- warm-up: the cell's own steps (its sorts, its met swap)
     i = 0
     for _ in range(int(wl["warmup_steps"])):
-        simu.advance(t_of(i), write_output=False)
+        drv.step(t_of(i))
         i += 1
-    _sync(dev)
+    drv.sync()
 
     # ---- hooks of the window: spans (traced runs), the read stages (file
     # cells) and the sort, whose state is hashed in the checked period
     hashes = []
-    hashing = [False]
     spans = tracing.Spans(dev) if trace else None
-    stages = tracing.ReadStages() if met_cfg["source"] != "memory" else None
-    orig_sort = p_sim.module_sort
+    stages = tracing.ReadStages() if files else None
 
     def label(name):
         return (torch.profiler.record_function("bench:" + name) if trace
                 else contextlib.nullcontext())
 
-    def checked_sort(met, atm_, cache_):
-        h0 = checks.state_hash(atm_, cache_) if hashing[0] else None
+    @contextlib.contextmanager
+    def around_sort():
         with label("sort"), (spans.span("sort") if spans is not None
                              else contextlib.nullcontext()):
-            out = orig_sort(met, atm_, cache_)
-        if hashing[0]:
-            hashes.append((h0, checks.state_hash(*out),
-                           atm_.np == out[0].np))
-        return out
+            yield
 
     def step(t, k):
         if t > t_last:
             raise RunError(f"the run outran the cell's time range at t={t}"
                            " (a longer met series or T_STOP is needed)")
-        swap = bool(simu.met.swap_due(t))
+        swap = drv.swap_due(t)
         rec = {"i": k, "t": t, "sort": is_sort(t), "swap": swap,
                "wall_ms": None}
         timed_wall = spans is not None and swap and stages is not None
         if timed_wall:
-            _sync(dev)
+            drv.sync()
             w0 = time.perf_counter()
         if spans is not None:
             spans.step_index = k
         with label("swap" if swap else "step"):
-            simu.advance(t, write_output=False)
+            drv.step(t)
         if timed_wall:
-            _sync(dev)
+            drv.sync()
             rec["wall_ms"] = 1e3 * (time.perf_counter() - w0)
         return rec
 
     steps = []
     prof = trace_s = None
-    p_sim.module_sort = checked_sort
+    drv.hook_sort(around_sort)
     if spans is not None:
         spans.wrap_all()
     if stages is not None:
         stages.wrap_all()
-    reads0 = len(getattr(simu.met, "reads", []))
+    reads0 = len(drv.met_reads())
     try:
         # ---- the window: whole periods of the program's steps alone
         if trace:
             prof = tracing.start_profiler()
-        _sync(dev)
+        drv.sync()
         t_win0 = time.perf_counter()
         setup_s = t_win0 - t_start
         while True:
             for _ in range(period):
                 steps.append(step(t_of(i), len(steps)))
                 i += 1
-            _sync(dev)
+            drv.sync()
             elapsed = time.perf_counter() - t_win0
             if prof is not None and trace_s is None and elapsed >= TRACE_S:
                 tracing.stop_profiler(prof)
@@ -260,40 +225,44 @@ def run(cell: str, seed: int, seconds: float, trace: bool,
             tracing.stop_profiler(prof)
             trace_s = t_win1 - t_win0
         window_s = t_win1 - t_win0
-        mem_peak = (torch.cuda.max_memory_allocated(dev)
-                    if dev.type == "cuda" else 0)
+        mem_peak = max(drv.peak_bytes())
         if spans is not None:
             spans.restore()
             span_ms = spans.ms()
             spans = None
         else:
             span_ms = {}
-        reads_window = list(getattr(simu.met, "reads", []))[reads0:]
+        reads_window = drv.met_reads()[reads0:]
         stages_window = list(stages.reads) if stages is not None else []
 
         # ---- the checked period, right after the window, on the same
-        # Simulation: the state of the sampled slots before and after
-        # steps without a sort drawn from the seed, and the hash of every
-        # parcel around each sort
+        # state: the sampled slots' state before and after steps without a
+        # sort drawn from the seed, and the hash of every parcel around
+        # each sort
         rng = np.random.default_rng([int(seed) & (2 ** 63 - 1), 7])
         free = [jj for jj in range(period) if not is_sort(t_of(i + jj))]
         checked = set(rng.choice(free, size=min(int(wl["check"]["steps"]),
                                                 len(free)),
                                  replace=False).tolist())
         slots_np = inputs.draw_slots(n, int(wl["check"]["slots"]), seed, 11)
-        cap = checks.Capture(slots_np, dev)
-        hashing[0] = True
+        taken = []
+
+        def take(t):
+            state, ctr = drv.take(slots_np)
+            taken.append({"t_step": t, "state": state, "ctr": ctr})
+
+        drv.hook_sort(around_sort, hashes)
         for jj in range(period):
             t = t_of(i)
             if jj in checked:
-                cap.take(simu, {"t_step": t})
+                take(t)
             step(t, -1)
             if jj in checked:
-                cap.take(simu, {"t_step": t})
+                take(t)
             i += 1
         t_checked = t_of(i - 1)
     finally:
-        p_sim.module_sort = orig_sort
+        drv.unhook_sort()
         if spans is not None:
             spans.restore()
         if stages is not None:
@@ -303,59 +272,45 @@ def run(cell: str, seed: int, seconds: float, trace: bool,
     hash_ok = [bool(int(a) == int(b)) and bool(same)
                for a, b, same in hashes]
     pair_fields = pair_times = None
-    if met_cfg["source"] == "netcdf":
-        pair = simu.met.pair
-        pair_fields = {k: pair.fields3d[k].cpu().numpy()
-                       for k in ("u", "v", "w", "t")}
-        pair_fields.update({k: pair.fields2d[k].cpu().numpy()
-                            for k in ("ps", "pbl")})
-        pair_times = tuple(float(x) for x in pair.time)
-        del pair
+    if files:
+        pair_fields, pair_times = drv.met_pair(ref.INGESTED)
     trace_info = None
     if prof is not None:
         trace_info = (_read_trace(prof, trace_s) if dev.type == "cuda"
                       else None)
         del prof
-    cap.free()
-    del simu, checked_sort
-    _sync(dev)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    for name in forbidden_modules():
-        raise RunError(f"module {name!r} is loaded")
+    drv.close()
+    del drv
 
-    # ---- the checks against the plain reference
+    # ---- the checks against the reference
     # (every parcel starts at time 0: MPTRAC's run starts there too)
-    rctl = dict(checks.ctl_values(args), t_start=0.0)
-    rclim = ref.load_clim(*[
-        os.path.join(manifest.HERE, "data", cfg["clim_files"][key])
-        if key in cfg.get("clim_files", {}) else None
-        for key in ("CLIM_OH_FILENAME", "CLIM_H2O2_FILENAME")])
+    rctl = dict(ref.params(args), t_start=0.0)
+    rclim = ref.load_clim(_clim_files(cfg))
     slots_t = torch.from_numpy(slots_np)
-    taken = cap.taken
     pairs = [(taken[q], taken[q + 1]) for q in range(0, len(taken), 2)]
-    ingest_nc = functools.lru_cache(maxsize=8)(ref.ingest_nc)
-    met_for = _reference_met(met_cfg, arrays, met_base, ingest_nc)
-    step_res = checks.step_gaps(pairs, rctl, met_for, rclim, n, slots_t)
-    ctrl_res = (checks.step_gaps(pairs, rctl, met_for, rclim, n, slots_t,
-                                 dtype=torch.bfloat16) if control else None)
+    ingest = functools.lru_cache(maxsize=8)(ref.ingest)
+    met_for = _reference_met(ref, gen, dt_met, snaps, met_base, ingest)
+    step_res = checks.step_gaps(ref, pairs, rctl, met_for, rclim, n,
+                                slots_t)
+    ctrl_res = (checks.step_gaps(ref, pairs, rctl, met_for, rclim, n,
+                                 slots_t, dtype=torch.bfloat16)
+                if control else None)
     numbers = checks.combine(step_res)
     numbers["sort_bad"] = float(sum(1 for ok in hash_ok if not ok))
-    ingest = None
-    if met_cfg["source"] == "netcdf":
+    ingest_res = None
+    if files:
         t0 = pair_t0(t_checked, dt_met)
         exp_times = (t0, t0 + dt_met)
-        expected = [ingest_nc(inputs.met_filename(met_base, tt))
-                    for tt in exp_times]
-        ingest = checks.ingest_gaps(pair_fields, pair_times, expected,
-                                    exp_times)
+        expected = [ingest(gen.filename(met_base, tt)) for tt in exp_times]
+        ingest_res = checks.ingest_gaps(pair_fields, pair_times, expected,
+                                        exp_times)
         if control:
-            low = [ref.ingest_nc(inputs.met_filename(met_base, tt),
-                                 torch.bfloat16) for tt in exp_times]
+            low = [ref.ingest(gen.filename(met_base, tt), torch.bfloat16)
+                   for tt in exp_times]
             ctrl_ingest = checks.ingest_gaps(
-                {k: np.stack([s["f3"].get(k, s["f2"].get(k)) for s in low])
+                {k: np.stack([s[4].get(k, s[3].get(k)) for s in low])
                  for k in pair_fields}, exp_times, expected, exp_times)
-        numbers.update(ingest)
+        numbers.update(ingest_res)
     # the numbers compared are those the cell has limits for
     limits = wl["limits"]
     check_out = {k: {"value": numbers[k], "limit": lim}
@@ -366,7 +321,7 @@ def run(cell: str, seed: int, seconds: float, trace: bool,
                  if any(r[k] > limits[k] for k in checks.STEP_NUMBERS
                         if k in limits))
     failed += numbers["sort_bad"]
-    if ingest and any(v > limits[k] for k, v in ingest.items()):
+    if ingest_res and any(v > limits[k] for k, v in ingest_res.items()):
         failed += 1
 
     # ---- metrics
@@ -410,9 +365,12 @@ def run(cell: str, seed: int, seconds: float, trace: bool,
     if ctrl_res is not None:
         out["numbers"] = numbers
         out["control"] = checks.combine(ctrl_res)
-        if ingest is not None:
+        if ingest_res is not None:
             out["control"].update(ctrl_ingest)
     out["checks"] = check_out
+    # last, once the reference and the metric readers have run too
+    for name in forbidden_modules():
+        raise RunError(f"module {name!r} is loaded")
     return out
 
 
@@ -423,14 +381,12 @@ def pair_t0(t: float, dt_met: float) -> float:
     return t0 - dt_met if t0 == t and t > 0 else t0
 
 
-def _reference_met(met_cfg: dict, arrays, met_base, ingest_nc):
-    """t -> the reference's met pair at model time t: the benchmark's
-    own fields in memory, or what the reference derives from the pair's
-    two files."""
-    dt_met = float(met_cfg["dt_met"])
-    if met_cfg["source"] == "memory":
-        lon, lat, p, f2, f3 = arrays
-        pair = ref.met_pair((0.0, dt_met), lon, lat, p, f2, f3)
+def _reference_met(ref, gen, dt_met: float, snaps, met_base, ingest):
+    """t -> reference ``ref``'s met pair at model time t: from the
+    snapshots in memory (``met_base`` None), or from what it derives
+    from the pair's two files of generator ``gen``'s series."""
+    if met_base is None:
+        pair = ref.met_pair((0.0, dt_met), snaps[0], snaps[1])
         return lambda t: pair
     cache = {}
 
@@ -438,13 +394,10 @@ def _reference_met(met_cfg: dict, arrays, met_base, ingest_nc):
         t0 = pair_t0(t, dt_met)
         if t0 not in cache:
             cache.clear()
-            snaps = [ingest_nc(inputs.met_filename(met_base, tt))
-                     for tt in (t0, t0 + dt_met)]
             cache[t0] = ref.met_pair(
-                (t0, t0 + dt_met), snaps[0]["lon"], snaps[0]["lat"],
-                snaps[0]["p"], snaps[0]["f2"], snaps[0]["f3"], snaps[1]["f2"],
-                snaps[1]["f3"], names2=("ps", "pbl"),
-                names3=("u", "v", "w", "t"))
+                (t0, t0 + dt_met),
+                *[ingest(gen.filename(met_base, tt))
+                  for tt in (t0, t0 + dt_met)])
         return cache[t0]
 
     return met_for

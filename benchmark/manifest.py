@@ -4,9 +4,17 @@
 * a cell (workload): ``workloads/<name>.json``;
 * a per-layer metric: ``metrics/<name>.py`` with ``read(ctx)``;
 * a kernel's roofline: ``roofline/<kernel>.py`` with ``KERNELS`` and
-  ``bound_s(ctx, launches)``.
+  ``bound_s(ctx, launches)``;
+* a met generator: ``mets/<name>.py``, named by a configuration's
+  ``generator`` (``wind`` where it names none);
+* a reference: ``references/<name>.py``, named by a configuration's
+  ``reference`` (``plain`` where it names none);
+* a driver: ``drivers/<name>.py``, named by a workload's ``driver``
+  (``single`` where it names none).
 
-Adding one is adding its file and its entry in ``BENCHMARK.json``.
+Adding one is adding its file and, for a configuration, a cell or a
+metric, its entry in ``BENCHMARK.json``.  README.md gives each kind's
+contract.
 """
 
 from __future__ import annotations
@@ -18,6 +26,16 @@ from types import ModuleType
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+
+#: kind -> (the key of a configuration or workload that names its
+#: module, the module where it names none)
+NAMED_BY = {"mets": ("generator", "wind"),
+            "references": ("reference", "plain"),
+            "drivers": ("driver", "single")}
+
+
+class RunError(RuntimeError):
+    """A run that cannot give a result (printed, exit code 2)."""
 
 
 def load_manifest() -> dict:
@@ -43,6 +61,8 @@ def config(name: str) -> dict:
 
 def _module(kind: str, name: str) -> ModuleType:
     path = os.path.join(HERE, kind, name + ".py")
+    if not os.path.isfile(path):
+        raise RunError(f"{kind}/{name}.py: no such file ({path})")
     spec = importlib.util.spec_from_file_location(
         f"benchmark_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
@@ -56,6 +76,25 @@ def metric_reader(name: str) -> ModuleType:
 
 def roofline(kernel: str) -> ModuleType:
     return _module("roofline", kernel)
+
+
+def name_of(kind: str, entry: dict) -> str:
+    """The name of the ``kind`` module (``mets``, ``references``,
+    ``drivers``) that a configuration or workload ``entry`` uses."""
+    key, default = NAMED_BY[kind]
+    return entry.get(key, default)
+
+
+def met_generator(cfg: dict) -> ModuleType:
+    return _module("mets", name_of("mets", cfg))
+
+
+def reference(cfg: dict) -> ModuleType:
+    return _module("references", name_of("references", cfg))
+
+
+def driver(wl: dict) -> ModuleType:
+    return _module("drivers", name_of("drivers", wl))
 
 
 def cell_metrics(manifest: dict, cell: str, traced: bool) -> list:

@@ -28,7 +28,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-RE = 6367.421
+from benchmark.checks import RE  # noqa: F401  (MPTRAC's earth radius, km)
+
 H0 = 7.0
 P0 = 1013.25
 AVO = 6.02214076e23
@@ -421,7 +422,7 @@ def step(ctl: dict, met: Met, clim: Clim, state: dict, t: float, ctr: int,
     ``total``) from ``state`` (``time`` float64, ``lon``, ``lat``,
     ``p``, ``t``, ``m``, ``u``, ``v``, ``w``), with the random counter
     ``ctr`` at the step's start.  ``ctl`` holds the control parameters
-    (``config.ctl_values``)."""
+    (a reference module's ``params``)."""
     return step_versions(ctl, met, clim, state, t, ctr, total, slots,
                          dtype)[0]
 
