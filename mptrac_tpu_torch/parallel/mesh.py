@@ -7,14 +7,17 @@ OpenMP particle loops, mptrac.h:1536 PARTICLE_LOOP).  JAX lets
 ``jax.jit`` partition one global program over sharded arrays; PyTorch
 has no such partitioner, so here a sharded array is a ``Sharded``: the
 blocks of one global tensor, one a device, and ``make_sharded_step``
-runs the port's step on each block.  Two things a block cannot compute
-alone.  Its random draws: each shard draws its own parcels' slice of the
-global draw (``Cache.rng_part``), so the sharded step equals the
+runs the port's step on each block, each shard on a thread of its own
+with its device current, so that all cards run at once
+(``sim.Simulation(..., mesh=)`` runs a whole run this way).  Two things
+a block cannot compute alone.  Its random draws: each shard draws its
+own parcels' slice of the global draw (``Cache.rng_part``), so the
+sharded step equals the
 unsharded one bit for bit and the counter advances once by the global
 draw.  And the box sums of mixing and of the chemistry grid, which take
-the parcels of every shard: there the shards run in lockstep threads
-that add their sums at a barrier, and the step equals the unsharded one
-up to the order of those float sums.
+the parcels of every shard: there the shards add their sums at a
+barrier, and the step equals the unsharded one up to the order of those
+float sums.
 
 A mesh may name one device several times (``make_mesh(4,
 devices=[torch.device("cpu")] * 4)``): the tests' counterpart of JAX's
@@ -25,7 +28,10 @@ are :mod:`mptrac_tpu_torch.parallel.multihost`.
 
 from __future__ import annotations
 
+import contextlib
+import queue
 import threading
+import weakref
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -33,6 +39,7 @@ import torch
 
 from mptrac_tpu_torch.types import (Atm, Cache, Met, _map_tensors,
                                     cache_field_tree, resolve_device)
+from mptrac_tpu_torch.utils import timers
 
 
 @dataclass(frozen=True)
@@ -139,19 +146,25 @@ def shard_atm(atm: Atm, mesh: Mesh, axis: str = "dp") -> Atm:
                q={k: put(v, ps) for k, v in atm.q.items()}, np=atm.np)
 
 
-def shard_cache(cache: Cache, mesh: Mesh, axis: str = "dp") -> Cache:
+def _cache_placement(cache: Cache, mesh: Mesh, axis: str) -> Cache:
     """Placements from the Cache field categories (types.py), so that a
     new field cannot be left out: particle fields sharded, ``uvwp`` along
-    its parcel axis, the small tables replicated; the host values (the
-    counter, the served fraction, the balloon count) stay as they are."""
+    its parcel axis, the small tables replicated; None for the host
+    values (the counter, the served fraction, the balloon count)."""
     ps = particle_sharding(mesh, axis)
     placement = cache_field_tree(particle=ps, particle2d=NamedSharding(
         mesh, 1), device_scalar=None, glob=replicated(mesh), shard=None)
     # iso_var may be the [1] placeholder when ISOSURF is off
     if cache.iso_var.shape != cache.dt.shape:
         placement = placement.replace(iso_var=replicated(mesh))
+    return placement
+
+
+def shard_cache(cache: Cache, mesh: Mesh, axis: str = "dp") -> Cache:
+    """The Cache placed over the mesh (``_cache_placement``); the host
+    values stay as they are."""
     kw = {}
-    for name, where in vars(placement).items():
+    for name, where in vars(_cache_placement(cache, mesh, axis)).items():
         value = getattr(cache, name)
         kw[name] = (put(value, where) if isinstance(value, torch.Tensor)
                     and where is not None else value)
@@ -230,108 +243,206 @@ def _crosses_shards(ctl, flags) -> bool:
 
 
 def _alone(part):
-    """The box sum of a shard run on its own: a module that
-    ``_crosses_shards`` does not know of."""
+    """The box sum of a shard in a step that ``_crosses_shards`` does not
+    know to cross the shards."""
     raise RuntimeError("sharded step: a box sum in a step whose shards "
-                       "run one after another")
+                       "were given no sum over the shards")
 
 
-def make_sharded_step(ctl, clim, mesh: Mesh):
+def _shard_loop(dev, jobs) -> None:
+    """A shard thread: run the jobs of ``jobs`` with ``dev`` current
+    until it hands a None."""
+    where = (torch.cuda.device(dev) if dev.type == "cuda"
+             else contextlib.nullcontext())
+    with where:
+        while True:
+            job = jobs.get()
+            if job is None:
+                return
+            fn, k, parent, out, errors, done = job
+            try:
+                with timers.adopt(parent):
+                    out[k] = fn(k)
+            except BaseException as exc:
+                errors.append(exc)             # map raises it
+            finally:
+                done.release()
+                # hold nothing of the job (its state) until the next one
+                del job, fn, parent, out, errors, done
+
+
+def _stop(queues: list) -> None:
+    for jobs in queues:
+        jobs.put(None)
+
+
+def atm_block(atm: Atm, k: int) -> Atm:
+    """Shard ``k`` of a sharded Atm as a plain Atm, its live count the
+    part of the global count that falls into its block."""
+    c = atm.time.blocks[0].shape[0]
+    return Atm(time=atm.time.blocks[k], p=atm.p.blocks[k],
+               lon=atm.lon.blocks[k], lat=atm.lat.blocks[k],
+               q={n: v.blocks[k] for n, v in atm.q.items()},
+               np=min(max(atm.np - k * c, 0), c))
+
+
+def cache_block(cache: Cache, k: int) -> Cache:
+    """Shard ``k`` of a sharded Cache as a plain Cache."""
+    return Cache(**{name: (value.blocks[k] if isinstance(value, Sharded)
+                           else value)
+                    for name, value in vars(cache).items()})
+
+
+def join_atm(blocks, mesh: Mesh, np: int) -> Atm:
+    """The sharded Atm whose shards are ``blocks`` (plain Atms, one a
+    mesh device, of equal capacity), ``np`` parcels live in all: the
+    inverse of ``atm_block``."""
+    ps = particle_sharding(mesh, mesh.axis)
+
+    def join(cols):
+        return Sharded(tuple(cols), ps, (sum(c.shape[0] for c in cols),))
+
+    return Atm(time=join([b.time for b in blocks]),
+               p=join([b.p for b in blocks]),
+               lon=join([b.lon for b in blocks]),
+               lat=join([b.lat for b in blocks]),
+               q={n: join([b.q[n] for b in blocks]) for n in blocks[0].q},
+               np=np)
+
+
+def join_cache(blocks, mesh: Mesh) -> Cache:
+    """The sharded Cache whose shards are ``blocks`` (plain Caches, one
+    a mesh device), placed as ``shard_cache`` places a whole one; the
+    host values are the first block's: the inverse of ``cache_block``."""
+    first = blocks[0]
+    kw = {}
+    for name, where in vars(_cache_placement(first, mesh,
+                                             mesh.axis)).items():
+        value = getattr(first, name)
+        if where is None or not isinstance(value, torch.Tensor):
+            kw[name] = value
+            continue
+        shape = list(value.shape)
+        if where.dim is not None:
+            shape[where.dim] *= len(blocks)
+        kw[name] = Sharded(tuple(getattr(b, name) for b in blocks), where,
+                           tuple(shape))
+    return Cache(**kw)
+
+
+class ShardedStep:
     """The step over sharded parcels: the counterpart of ``jax.jit`` of
     ``pipeline.run_timestep`` on arrays placed by ``shard_atm``,
     ``shard_cache`` and ``replicate_met`` (one process).
 
-    Returns ``step(met_rep, atm, cache, t, flags=StepFlags())`` ->
-    ``(atm, cache)``, sharded as they came.  Every shard runs the step on
-    its own device with its slice of the global random draws.  Where the
+    ``step(met_rep, atm, cache, t, flags=StepFlags(), packs=None)`` ->
+    ``(atm, cache)``, sharded as they came; ``packs`` are the gather
+    tables of the met replicas (``sim.build_pack``), one a shard, so that
+    every shard takes the path the one-card step takes with them.  Each
+    shard runs the step on its own device's thread (``map``), with its
+    slice of the global random draws, in a span ``shard``.  Where the
     step mixes parcels or grids the chemistry, whose box sums take the
-    parcels of every shard, the shards run in lockstep threads and each
-    box sum is summed over the shards (``_BoxReducer``): the result
-    equals the unsharded step's up to the order of the float sums."""
-    from mptrac_tpu_torch.physics import mixing, pipeline
+    parcels of every shard, each box sum is summed over the shards at a
+    barrier (``_BoxReducer``): the result equals the unsharded step's up
+    to the order of the float sums.  ``clims`` is the climatology on
+    every device.
 
-    clims = _replicate(clim, mesh)
+    The threads, one a mesh position with its device current
+    (``torch.cuda.device``), start at the first ``map`` and stop at
+    ``close`` (or once this object is collected): the port's kernels
+    launch on the current device's stream, and a shard whose thread
+    waits for its card (a read-back) holds back no other card's
+    launches."""
 
-    def step(met_rep, atm: Atm, cache: Cache, t: float,
-             flags=pipeline.StepFlags()):
-        ndev = len(mesh.devices)
+    def __init__(self, ctl, clim, mesh: Mesh):
+        self.ctl, self.mesh = ctl, mesh
+        self.clims = _replicate(clim, mesh)
+        self._queues: list = []
+        self._threads: list = []
+        weakref.finalize(self, _stop, self._queues)
+
+    def map(self, fn) -> list:
+        """``[fn(k) for each mesh position k]``, each call on position
+        k's thread, all at once; returns when every call has, and raises
+        the first failure (not a shard's ``BrokenBarrierError``: the
+        failure that broke the barrier).  Spans the calls open take the
+        caller's innermost open span as their parent."""
+        if not self._threads:
+            for k, dev in enumerate(self.mesh.devices):
+                jobs = queue.SimpleQueue()
+                th = threading.Thread(target=_shard_loop, args=(dev, jobs),
+                                      name=f"mesh-shard-{k}", daemon=True)
+                th.start()
+                self._queues.append(jobs)
+                self._threads.append(th)
+        n = len(self._queues)
+        out, errors = [None] * n, []
+        done = threading.Semaphore(0)
+        parent = timers.innermost()
+        for k, jobs in enumerate(self._queues):
+            jobs.put((fn, k, parent, out, errors, done))
+        for _ in range(n):
+            done.acquire()
+        if errors:
+            errors.sort(key=lambda e: isinstance(
+                e, threading.BrokenBarrierError))
+            raise errors[0]
+        return out
+
+    def close(self) -> None:
+        """Stop the threads (a later ``map`` starts new ones)."""
+        _stop(self._queues)
+        for th in self._threads:
+            th.join()
+        self._queues.clear()
+        self._threads.clear()
+
+    def __call__(self, met_rep, atm: Atm, cache: Cache, t: float,
+                 flags=None, packs=None):
+        from mptrac_tpu_torch.physics import mixing, pipeline
+
+        ctl = self.ctl
+        flags = pipeline.StepFlags() if flags is None else flags
         c = atm.time.blocks[0].shape[0]
         total = atm.time.shape[0]
-        out = [None] * ndev
+        reducer = (_BoxReducer(self.mesh) if _crosses_shards(ctl, flags)
+                   else None)
+        shard_span = timers.span("shard")
 
-        def run(k, reduce=_alone):
-            a_k = Atm(time=atm.time.blocks[k], p=atm.p.blocks[k],
-                      lon=atm.lon.blocks[k], lat=atm.lat.blocks[k],
-                      q={n: v.blocks[k] for n, v in atm.q.items()},
-                      np=min(max(atm.np - k * c, 0), c))
-            c_k = _cache_block(cache, k).replace(rng_part=(k * c, total))
-            mixing.SHARD.reduce = reduce
+        def run(k):
+            a_k = atm_block(atm, k)
+            c_k = cache_block(cache, k).replace(rng_part=(k * c, total))
+            mixing.SHARD.reduce = (_alone if reducer is None
+                                   else reducer.shard(k))
             try:
-                out[k] = pipeline.run_timestep(ctl, clims[k], met_rep[k],
-                                               a_k, c_k, float(t), flags)
+                with shard_span:
+                    return pipeline.run_timestep(
+                        ctl, self.clims[k], met_rep[k], a_k, c_k, float(t),
+                        flags, None if packs is None else packs[k])
+            except BaseException:
+                if reducer is not None:
+                    reducer.barrier.abort()   # release the other shards
+                raise
             finally:
                 mixing.SHARD.reduce = None
 
-        if _crosses_shards(ctl, flags):
-            reducer = _BoxReducer(mesh)
-            errors = []
-
-            def lockstep(k):
-                try:
-                    run(k, reducer.shard(k))
-                except Exception as exc:
-                    errors.append(exc)
-                    reducer.barrier.abort()   # release the other shards
-
-            threads = [threading.Thread(target=lockstep, args=(k,))
-                       for k in range(ndev)]
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join()
-            if errors:
-                # the first failure, not a shard's BrokenBarrierError
-                errors.sort(key=lambda e: isinstance(
-                    e, threading.BrokenBarrierError))
-                raise errors[0]
-        else:
-            for k in range(ndev):
-                run(k)
-        atms = [a_k for a_k, _ in out]
+        out = self.map(run)
+        timers.count("shards", len(out))
         caches = [c_k for _, c_k in out]
         ctrs = {c_k.rng_ctr for c_k in caches}
         if len(ctrs) != 1:
             raise RuntimeError(f"sharded step: shards ended on counters "
                                f"{sorted(ctrs)}")
-
-        def regather(old, new):
-            return Sharded(tuple(new), old.sharding, old.shape)
-
-        atm2 = Atm(time=regather(atm.time, [a.time for a in atms]),
-                   p=regather(atm.p, [a.p for a in atms]),
-                   lon=regather(atm.lon, [a.lon for a in atms]),
-                   lat=regather(atm.lat, [a.lat for a in atms]),
-                   q={n: regather(v, [a.q[n] for a in atms])
-                      for n, v in atm.q.items()}, np=atm.np)
-        kw = {}
-        for name, value in vars(cache).items():
-            if isinstance(value, Sharded):
-                kw[name] = regather(value, [getattr(c_k, name)
-                                            for c_k in caches])
-            elif name == "rng_part":
-                kw[name] = value
-            else:
-                kw[name] = getattr(caches[0], name)
-        return atm2, Cache(**kw)
-
-    return step
+        served = [c_k.served_min for c_k in caches]
+        return (join_atm([a_k for a_k, _ in out], self.mesh, atm.np),
+                join_cache(caches, self.mesh).replace(
+                    rng_part=cache.rng_part,
+                    served_min=None if None in served else min(served)))
 
 
-def _cache_block(cache: Cache, k: int) -> Cache:
-    """Shard ``k`` of a sharded Cache as a plain Cache."""
-    return Cache(**{name: (value.blocks[k] if isinstance(value, Sharded)
-                           else value)
-                    for name, value in vars(cache).items()})
+def make_sharded_step(ctl, clim, mesh: Mesh) -> ShardedStep:
+    """The step over sharded parcels (``ShardedStep``)."""
+    return ShardedStep(ctl, clim, mesh)
 
 
 def unshard(tree, device="cpu"):

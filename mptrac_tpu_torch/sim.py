@@ -18,6 +18,14 @@ one; a resumed run skips the first-step initialisation
 (``pipeline.init_modules``), which the run that wrote the checkpoint
 already did, so that it continues bit for bit.
 
+With ``mesh=`` (``parallel.mesh.Mesh``) one run spans the mesh's devices
+as MPTRAC's GPU runs span a node, one rank a GPU (mptrac.c:6116): the
+parcels are sharded over the devices, every device holds a replica of
+the met pair and its own gather tables, and each shard runs the
+first-step initialisation, the sort and the step on its own device
+(``parallel.mesh.ShardedStep``), as the unsharded run does on its
+parcels; output and checkpoints gather the state.
+
 The compute mode is explicit: ``dtype=torch.float64`` (the default and
 the reference-parity mode) or ``torch.float32``, the mode in which
 ``TPU_FAST 1`` and ``2`` run the CUDA kernels.  In float32 mode the
@@ -31,6 +39,7 @@ import math
 import os
 from typing import Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
 from mptrac_tpu_torch.climatology import read_clim
@@ -40,6 +49,11 @@ from mptrac_tpu_torch.met.build import check_met_type, read_met
 from mptrac_tpu_torch.met.read_nc import get_met_filename
 from mptrac_tpu_torch.ops.fast_interp import MetPack, build_met_pack
 from mptrac_tpu_torch.ops.sort import module_sort
+from mptrac_tpu_torch.parallel.mesh import (Mesh, Sharded, atm_block,
+                                            cache_block, join_atm,
+                                            join_cache, make_sharded_step,
+                                            pad_to_multiple, replicate_met,
+                                            shard_atm, shard_cache, unshard)
 from mptrac_tpu_torch.physics import pipeline
 from mptrac_tpu_torch.physics.timesteps import init_time_range
 from mptrac_tpu_torch.types import (Atm, Cache, Clim, Met, astype_state,
@@ -219,6 +233,41 @@ def _snapshot(pair: Met, k: int) -> Met:
         fields3d={n: v[k] for n, v in pair.fields3d.items()})
 
 
+def _sharded_state(atm: Atm, cache: Optional[Cache], mesh: Mesh, dtype,
+                   iso_npmax: Optional[int]):
+    """The particle state sharded over ``mesh`` in compute mode
+    ``dtype``: a whole Atm cast, padded to a multiple of the mesh size and
+    split (``shard_atm``), a sharded one (``parallel.mesh.join_atm``) as
+    it is; the cache split likewise, or zeros made on each device."""
+    if not isinstance(atm.time, Sharded):
+        if atm.lon.dtype != dtype:
+            atm = astype_state(atm=atm, dtype=dtype)
+        atm = shard_atm(pad_to_multiple(atm, mesh.size), mesh)
+    elif atm.lon.blocks[0].dtype != dtype:
+        raise ValueError(f"a sharded state in {atm.lon.blocks[0].dtype}, "
+                         f"the compute mode is {dtype}")
+    if cache is None:
+        npb = atm.time.blocks[0].shape[0]
+        cache = join_cache([Cache.zeros(npb, dtype, iso_npmax=iso_npmax,
+                                        device=d) for d in mesh.devices],
+                           mesh)
+    elif not isinstance(cache.dt, Sharded):
+        cache = shard_cache(cache, mesh)
+    return atm, cache
+
+
+def _live_times(atm: Atm):
+    """The least and greatest time of each shard's live parcels (numpy,
+    on the host): what ``init_time_range`` takes of a sharded Atm."""
+    out = []
+    for k in range(len(atm.time.blocks)):
+        a_k = atm_block(atm, k)
+        if a_k.np:
+            t = a_k.time[:a_k.np]
+            out.append(torch.stack([t.min(), t.max()]).cpu().numpy())
+    return np.concatenate(out) if out else np.zeros(0)
+
+
 class Simulation:
     """One model run: ctl + clim + atm + cache + a met source.
 
@@ -229,6 +278,13 @@ class Simulation:
     compute mode (see the module docstring; default: the mode ``atm``
     is in).  ``checkpoint_file``/``checkpoint_dt`` write a checkpoint
     after every step whose time is a multiple of ``checkpoint_dt``.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) shards the run over its devices
+    (see the module docstring): ``atm`` and ``cache`` whole (split here)
+    or sharded already (``parallel.mesh.join_atm``, ``join_cache``);
+    ``atm`` and ``cache`` stay sharded (``parallel.mesh.unshard`` gives
+    them whole); the met source and the climatology live on the mesh's
+    first device.
     """
 
     #: re-sort when the served fraction since the last sort dips below
@@ -240,20 +296,34 @@ class Simulation:
     def __init__(self, ctl: Ctl, atm: Atm, clim: Optional[Clim] = None,
                  dirname: str = ".", checkpoint_file: Optional[str] = None,
                  checkpoint_dt: float = 0.0, *, met=None,
-                 cache: Optional[Cache] = None, dtype=None):
-        device = atm.time.device
-        dtype = atm.lon.dtype if dtype is None else dtype
+                 cache: Optional[Cache] = None, dtype=None,
+                 mesh: Optional[Mesh] = None):
+        self.mesh = mesh
+        iso_npmax = None if 1 <= ctl.isosurf <= 4 else 1
+        if mesh is None:
+            device = atm.time.device
+            dtype = atm.lon.dtype if dtype is None else dtype
+        else:
+            device = mesh.devices[0]
+            if dtype is None:
+                dtype = (atm.lon.blocks[0] if isinstance(atm.lon, Sharded)
+                         else atm.lon).dtype
         if clim is None:
             clim = read_clim(ctl, device=device)
-        self.ctl = init_time_range(ctl, atm.time[:atm.np])
-        if atm.lon.dtype != dtype:
-            atm = astype_state(atm=atm, dtype=dtype)
+        if mesh is None:
+            self.ctl = init_time_range(ctl, atm.time[:atm.np])
+            if atm.lon.dtype != dtype:
+                atm = astype_state(atm=atm, dtype=dtype)
+            if cache is None:
+                cache = Cache.zeros(atm.npmax, dtype, iso_npmax=iso_npmax,
+                                    device=device)
+        else:
+            atm, cache = _sharded_state(atm, cache, mesh, dtype, iso_npmax)
+            self.ctl = init_time_range(ctl, _live_times(atm))
         self.atm = atm
         self.clim = (clim if dtype == torch.float64
                      else astype_state(clim=clim, dtype=dtype))
-        self.cache = (cache if cache is not None else Cache.zeros(
-            atm.npmax, dtype, iso_npmax=None if 1 <= ctl.isosurf <= 4 else 1,
-            device=device))
+        self.cache = cache
         self.met = met if met is not None else MetBuffer(
             self.ctl, self.clim, device=device, dtype=dtype)
         self.dirname = dirname
@@ -267,16 +337,25 @@ class Simulation:
         self._output = None
         self._pack: Optional[MetPack] = None
         self._pack_src: Optional[Met] = None
+        #: with a mesh: the step over the shards (and their threads), and
+        #: the met pair's replicas, one a device
+        self._sharded = (None if mesh is None
+                         else make_sharded_step(self.ctl, self.clim, mesh))
+        self._met_rep = self._met_rep_src = None
 
     def resume(self, path: Optional[str] = None):
         """Restore the state of a checkpoint (of either package) onto
         this simulation's device and compute mode, and continue after
         its time: ``run()`` then steps from the next step time on."""
         from mptrac_tpu_torch.checkpoint import load_checkpoint
-        atm, cache, t, _ = load_checkpoint(path or self.checkpoint_file,
-                                           device=self.atm.time.device)
+        atm, cache, t, _ = load_checkpoint(
+            path or self.checkpoint_file,
+            device="cpu" if self.mesh is not None else self.atm.time.device)
         if atm.lon.dtype != self.dtype:
             atm, cache = astype_state(atm=atm, cache=cache, dtype=self.dtype)
+        if self.mesh is not None:
+            atm, cache = _sharded_state(atm, cache, self.mesh, self.dtype,
+                                        None)
         self.atm, self.cache = atm, cache
         self._resume_t = t
         self._first = False
@@ -285,16 +364,47 @@ class Simulation:
     @property
     def pack(self) -> Optional[MetPack]:
         """The gather tables of the current met pair (None before the
-        first step, after a release, and with ``TPU_FAST 0``)."""
+        first step, after a release, and with ``TPU_FAST 0``); with a
+        mesh a tuple of them, one a shard."""
         return self._pack
 
     def _get_pack(self, met01: Met) -> Optional[MetPack]:
-        """Gather tables, rebuilt once per met pair (TPU_FAST only)."""
+        """Gather tables, rebuilt once per met pair (TPU_FAST only); with
+        a mesh each device's from its replica, on its own thread."""
         if self._pack_src is not met01:
             with span("pack.build"):
-                self._pack = build_pack(self.ctl, met01)
+                if self.mesh is None:
+                    self._pack = build_pack(self.ctl, met01)
+                else:
+                    reps = self._replicas(met01)
+                    devs = self.mesh.devices
+                    first = [devs.index(d) for d in devs]
+                    packs = self._sharded.map(
+                        lambda k: build_pack(self.ctl, reps[k])
+                        if first[k] == k else None)
+                    self._pack = tuple(packs[j] for j in first)
             self._pack_src = met01
         return self._pack
+
+    def _replicas(self, met01: Met):
+        """The met pair on every mesh device, copied once a pair."""
+        if self._met_rep_src is not met01:
+            self._met_rep = None          # the old pair's replicas first
+            with span("met.replicate"):
+                self._met_rep = replicate_met(met01, self.mesh)
+            self._met_rep_src = met01
+        return self._met_rep
+
+    def _each_shard(self, fn, met01: Met):
+        """``fn(k, met, atm, cache)`` -> ``(atm, cache)`` on every shard
+        ``k`` (its met replica and state), each on its device's thread;
+        returns the sharded state of the results."""
+        reps = self._replicas(met01)
+        atm, cache = self.atm, self.cache
+        out = self._sharded.map(lambda k: fn(
+            k, reps[k], atm_block(atm, k), cache_block(cache, k)))
+        return (join_atm([a for a, _ in out], self.mesh, atm.np),
+                join_cache([c for _, c in out], self.mesh))
 
     def _sort_due(self) -> bool:
         # served_min is a host float: no device sync
@@ -307,7 +417,11 @@ class Simulation:
         if met01 is None:
             met01 = self.met.get(self.ctl.t_start)
         with self.timers.timer("MODULE_SORT", "PHYSICS", "sort"):
-            self.atm, self.cache = module_sort(met01, self.atm, self.cache)
+            if self.mesh is None:
+                self.atm, self.cache = module_sort(met01, self.atm,
+                                                   self.cache)
+            else:
+                self.atm, self.cache = self._each_shard(_sort_shard, met01)
         self.nsorts += 1
 
     def _flags(self, t: float) -> pipeline.StepFlags:
@@ -341,24 +455,38 @@ class Simulation:
         trac.c:122-160).  While tracing (``utils.timers``) it is the
         root span of a new step index, over ``met.get`` (with
         ``met.read`` per file and ``met.shift``), ``sort``,
-        ``pack.build``, ``step``, ``output`` and ``checkpoint``."""
+        ``pack.build``, ``step``, ``output`` and ``checkpoint``; with a
+        mesh also ``met.replicate`` and, on each shard's thread, a
+        ``sort`` under the sort and a ``shard`` under the step."""
         if self.met.swap_due(t):
             # release the old pair's tables before the new pair is read
             self._pack = self._pack_src = None
+            self._met_rep = self._met_rep_src = None
         with self.timers.timer("GET_MET", "INPUT", "met.get"):
             met01 = self.met.get(t)
         if self._first:
-            self.atm, self.cache = pipeline.init_modules(
-                self.ctl, self.clim, met01, self.atm, self.cache)
+            if self.mesh is None:
+                self.atm, self.cache = pipeline.init_modules(
+                    self.ctl, self.clim, met01, self.atm, self.cache)
+            else:
+                clims = self._sharded.clims
+                self.atm, self.cache = self._each_shard(
+                    lambda k, met, atm, cache: pipeline.init_modules(
+                        self.ctl, clims[k], met, atm, cache), met01)
             self._first = False
         if self.ctl.sort_dt > 0 and (
                 math.fmod(t, self.ctl.sort_dt) == 0 or self._sort_due()):
             self.sort(met01)
         pack = self._get_pack(met01)
         with self.timers.timer("RUN_TIMESTEP", "PHYSICS", "step"):
-            self.atm, self.cache = pipeline.run_timestep(
-                self.ctl, self.clim, met01, self.atm, self.cache, t,
-                self._flags(t), pack)
+            if self.mesh is None:
+                self.atm, self.cache = pipeline.run_timestep(
+                    self.ctl, self.clim, met01, self.atm, self.cache, t,
+                    self._flags(t), pack)
+            else:
+                self.atm, self.cache = self._sharded(
+                    self._replicas(met01), self.atm, self.cache, t,
+                    self._flags(t), pack)
         if write_output:
             with self.timers.timer("WRITE_OUTPUT", "OUTPUT", "output"):
                 self.write_output(t)
@@ -366,14 +494,18 @@ class Simulation:
                 and math.fmod(t, self.checkpoint_dt) == 0):
             from mptrac_tpu_torch.checkpoint import save_checkpoint
             with span("checkpoint"):
-                save_checkpoint(self.checkpoint_file, self.atm, self.cache,
-                                t)
+                atm, cache = self.atm, self.cache
+                if self.mesh is not None:
+                    atm, cache = unshard(atm), unshard(cache)
+                save_checkpoint(self.checkpoint_file, atm, cache, t)
 
     def close(self):
-        """Flush and close output files."""
+        """Flush and close output files; stop the shards' threads."""
         if self._output is not None:
             self._output.close()
             self._output = None
+        if self._sharded is not None:
+            self._sharded.close()
 
     def run(self, write_output: bool = True, progress: bool = False,
             scan: bool = True, ts: Optional[Iterable[float]] = None):
@@ -404,23 +536,35 @@ class Simulation:
         from mptrac_tpu_torch.io.output import OutputManager
         if self._output is None:
             self._output = OutputManager(self.dirname, self.ctl)
-        self._output.write(self.met, self.atm, t)
+        atm = self.atm
+        if self.mesh is not None:
+            atm = unshard(atm, self.mesh.devices[0])
+        self._output.write(self.met, atm, t)
+
+
+def _sort_shard(k: int, met01: Met, atm: Atm, cache: Cache):
+    """Shard ``k``'s sort on its device's thread (``module_sort`` of this
+    module, looked up at the call), in a span ``sort``."""
+    with span("sort"):
+        return module_sort(met01, atm, cache)
 
 
 def run_trac(dirname: str, ctl_file: str, atm_file: str, args=(),
-             device="cuda", dtype=torch.float64) -> Simulation:
+             device="cuda", dtype=torch.float64,
+             mesh: Optional[Mesh] = None) -> Simulation:
     """Equivalent of the reference trac program for one dirlist task
     (trac.c:95-185): read the control and particle files of ``dirname``,
-    run, write the outputs there."""
+    run, write the outputs there.  With ``mesh`` the run is sharded over
+    its devices (the parcels are read onto the first)."""
     import time
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.devices[0])
     ctl = read_ctl(os.path.join(dirname, ctl_file), args)
     t0 = time.perf_counter()
     with span("read_atm"):
         atm = atm_io.read_atm(os.path.join(dirname, atm_file), ctl,
                               dtype=dtype, device=dev)
     dt_read = time.perf_counter() - t0
-    sim = Simulation(ctl, atm, dirname=dirname, dtype=dtype)
+    sim = Simulation(ctl, atm, dirname=dirname, dtype=dtype, mesh=mesh)
     sim.timers.add("READ_ATM", "INPUT", dt_read)
     sim.run()
     return sim

@@ -8,17 +8,21 @@ of its ``jax.named_scope`` annotations, grown into the port's tracer:
 
 * **Spans.** ``span(name)`` is a context manager and a decorator.  A
   span's record holds its name, its parent (the innermost span open on
-  the same thread: every thread keeps its own stack), the step index
-  (that of the latest ``advance``), the thread, the host's start and end
+  the same thread: every thread keeps its own stack, and a worker thread
+  takes the span open where its work was handed out as the parent of its
+  own outermost spans, ``adopt``), the step index (that of the latest
+  ``advance``), the thread, the card (the index of the CUDA device
+  current on the thread, None without CUDA), the host's start and end
   (``time.perf_counter_ns``) and, once CUDA is initialised, a
   ``torch.cuda.Event`` pair on the current stream for the device time.
   Records stay in memory; ``read()`` waits for their events and gives
   each span's host and device ms and its self time (its time less what
-  its child spans cover).  ``span(name, outermost=True)`` records only
-  where no span of that name is open on the thread.
+  its child spans on its thread cover).  ``span(name, outermost=True)``
+  records only where no span of that name is open on the thread.
 * **Counters.** ``count(name, n)``; ``counters`` is the dict behind
-  ``ops._cuda.launch_counts``.  While tracing, every kernel launch of
-  ``ops/_cuda`` is stamped with its device function's name and the
+  ``ops._cuda.launch_counts``: the launches of each kernel, and the
+  counters of ``COUNTERS`` (``shards``).  While tracing, every kernel
+  launch of ``ops/_cuda`` is stamped with its device function's name and the
   host's time (``stamp``, ``launch_stamps()``): matched with the
   launches in a ``torch.profiler`` trace, the stamps put the spans on
   the profiler's clock.
@@ -62,8 +66,13 @@ _step = -1
 _records: list = []
 #: (device function, host ns) of every launch stamped while tracing
 _stamps: list = []
-#: counters by name (``count``); ``ops._cuda.launch_counts`` is this dict
-counters: Dict[str, int] = {}
+#: the counters that count no kernel launch: ``shards``, the shard steps
+#: of the sharded step (``parallel.mesh.ShardedStep``, one a device a step)
+COUNTERS = ("shards",)
+#: counters by name (``count``); ``ops._cuda.launch_counts`` is this dict:
+#: a launch count a device function, and ``COUNTERS``
+counters: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
+_count_lock = threading.Lock()
 _tls = threading.local()
 
 
@@ -81,8 +90,15 @@ def enabled() -> bool:
 
 
 class _Record:
-    __slots__ = ("span", "name", "parent", "step", "thread", "t0", "t1",
-                 "e0", "e1")
+    __slots__ = ("span", "name", "parent", "step", "thread", "device", "t0",
+                 "t1", "e0", "e1")
+
+
+def _card() -> Optional[int]:
+    """The index of the CUDA device current on this thread, None before
+    CUDA is initialised."""
+    return torch.cuda.current_device() if torch.cuda.is_initialized() \
+        else None
 
 
 def _event():
@@ -131,11 +147,12 @@ class _Span:
         stack = getattr(_tls, "stack", None)
         if stack is None:
             stack = _tls.stack = []
-        parent = None
         for r in reversed(stack):
             if type(r) is _Record:
                 parent = r
                 break
+        else:
+            parent = getattr(_tls, "base", None)
         if self.outermost and any(
                 r is self or (type(r) is _Record and r.span is self)
                 for r in stack):
@@ -146,6 +163,7 @@ class _Span:
         rec = _Record()
         rec.span, rec.name, rec.parent = self, self.name, parent
         rec.step, rec.thread = _step, threading.get_ident()
+        rec.device = _card()
         rec.t1 = rec.e1 = None
         rec.e0 = _event()
         rec.t0 = time.perf_counter_ns()
@@ -179,6 +197,28 @@ def span(name: str, outermost: bool = False, step: bool = False) -> _Span:
     return s
 
 
+def innermost():
+    """The innermost span open on this thread (its record; None while
+    not tracing), to hand to ``adopt`` on another thread."""
+    for r in reversed(getattr(_tls, "stack", None) or ()):
+        if type(r) is _Record:
+            return r
+    return getattr(_tls, "base", None)
+
+
+@contextlib.contextmanager
+def adopt(parent):
+    """Within the block, spans opened on this thread where none of its
+    own is open take ``parent`` (a record from ``innermost`` on the
+    thread that handed out the work, or None) as their parent."""
+    prev = getattr(_tls, "base", None)
+    _tls.base = parent
+    try:
+        yield
+    finally:
+        _tls.base = prev
+
+
 @contextlib.contextmanager
 def stage(name: str, timings: Optional[Dict[str, float]] = None,
           key: Optional[str] = None, sync=None):
@@ -198,7 +238,8 @@ def stage(name: str, timings: Optional[Dict[str, float]] = None,
 
 
 def count(name: str, n: int = 1) -> None:
-    counters[name] = counters.get(name, 0) + n
+    with _count_lock:        # the shards' worker threads count too
+        counters[name] = counters.get(name, 0) + n
 
 
 def stamp(kernel: str) -> None:
@@ -231,8 +272,9 @@ def _ms(a, b) -> Optional[float]:
 
 def _times(recs) -> Dict[int, dict]:
     """{id(record): times} of the closed records among ``recs``: host
-    and device ms, and self ms (less the closed child spans among the
-    records kept since the last ``reset``)."""
+    and device ms, and self ms (less the closed child spans on its own
+    thread among the records kept since the last ``reset``: children on
+    other threads run beside it)."""
     pool = {id(r): r for r in _records if r.t1 is not None}
     pool.update((id(r), r) for r in recs if r.t1 is not None)
     base = {rid: {"ms": 1e-6 * (r.t1 - r.t0),
@@ -241,7 +283,7 @@ def _times(recs) -> Dict[int, dict]:
     child_ms: Dict[int, float] = {}
     child_dev: Dict[int, float] = {}
     for rid, r in pool.items():
-        if r.parent is None:
+        if r.parent is None or r.parent.thread != r.thread:
             continue
         t, pid = base[rid], id(r.parent)
         child_ms[pid] = child_ms.get(pid, 0.0) + t["ms"]
@@ -262,17 +304,19 @@ def _times(recs) -> Dict[int, dict]:
 def read() -> List[dict]:
     """Every closed span since the last ``reset``, oldest first: ``name``,
     ``parent`` (index into this list, None for a root), ``step``,
-    ``thread``, ``t0_ns`` and ``t1_ns`` (host), ``ms`` (host),
-    ``device_ms`` (None without CUDA events), ``self_ms`` and
-    ``self_device_ms`` (less what the child spans cover).  Waits for the
-    spans' events: call it after the run."""
+    ``thread``, ``device`` (the card's index, None without CUDA),
+    ``t0_ns`` and ``t1_ns`` (host), ``ms`` (host), ``device_ms`` (None
+    without CUDA events), ``self_ms`` and ``self_device_ms`` (less what
+    the child spans on its thread cover).  Waits for the spans' events:
+    call it after the run."""
     recs = [r for r in _records if r.t1 is not None]
     times = _times(recs)
     index = {id(r): i for i, r in enumerate(recs)}
     return [dict(name=r.name,
                  parent=None if r.parent is None else index.get(
                      id(r.parent)),
-                 step=r.step, thread=r.thread, t0_ns=r.t0, t1_ns=r.t1,
+                 step=r.step, thread=r.thread, device=r.device,
+                 t0_ns=r.t0, t1_ns=r.t1,
                  **times[id(r)])
             for r in recs]
 

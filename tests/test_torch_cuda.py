@@ -862,6 +862,48 @@ def test_sharded_step_on_the_card_equals_unsharded(gpu):
     assert sc.rng_ctr == c.rng_ctr
 
 
+@pytest.mark.parametrize("sort_dt", [0, 1800], ids=["unfused", "fused"])
+def test_sharded_simulation_on_the_cards_equals_unsharded(gpu, sort_dt,
+                                                          monkeypatch):
+    """``Simulation(mesh=)`` over four shards, on cuda:0..3 where there
+    are four cards and on cuda:0 named four times otherwise: 12 steps of
+    the flagship at 4,194,304 parcels on the benchmark's grid equal the
+    unsharded run on cuda:0 bit for bit, on the unfused kernels
+    (``SORT_DT 0``) and on the fused path with a sort, each shard sorting
+    its own block (the unsharded run sorts block by block too)."""
+    from test_torch_sim_mesh import sort_blocks
+
+    from mptrac_tpu_torch import sim
+    from mptrac_tpu_torch.parallel import mesh as pmesh
+    n = 4_194_304
+    ctl, clim, met01, atm, cache = flagship.make_setup(
+        n, 360, 181, 61, extra_args=("TPU_FAST", "2", "SORT_DT",
+                                     str(sort_dt)), device="cuda:0")
+    atm = atm.replace(np=n - 24)
+    devs = ([f"cuda:{i}" for i in range(4)]
+            if torch.cuda.device_count() >= 4 else ["cuda:0"] * 4)
+    times = [180.0 * i for i in range(1, 13)]
+    sharded = sim.Simulation(ctl, atm, clim, met=sim.FixedMet(met01),
+                             cache=cache,
+                             mesh=pmesh.make_mesh(4, devices=devs))
+    sharded.run(write_output=False, ts=times)
+    monkeypatch.setattr(sim, "module_sort", sort_blocks(4))
+    plain = sim.Simulation(ctl, atm, clim, met=sim.FixedMet(met01),
+                           cache=cache)
+    plain.run(write_output=False, ts=times)
+    assert sharded.nsorts == plain.nsorts == (1 if sort_dt else 0)
+    assert [str(b.device) for b in sharded.atm.lon.blocks] == devs
+    ua = pmesh.unshard(sharded.atm, "cuda:0")
+    uc = pmesh.unshard(sharded.cache, "cuda:0")
+    for name in ("time", "lon", "lat", "p"):
+        assert torch.equal(getattr(ua, name), getattr(plain.atm, name)), name
+    for k in plain.atm.q:
+        assert torch.equal(ua.q[k], plain.atm.q[k]), k
+    assert torch.equal(uc.uvwp, plain.cache.uvwp)
+    assert uc.rng_ctr == plain.cache.rng_ctr
+    assert float((plain.atm.lon - atm.lon).abs().max()) > 0
+
+
 # ------------------------------------------------------------ Squares
 
 #: the kernel form of each float32 Squares draw and its plain version

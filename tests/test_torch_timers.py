@@ -121,7 +121,8 @@ def test_counters_back_launch_counts():
     counted always and stamped with its device function while
     tracing."""
     assert _cuda.launch_counts is timers.counters
-    assert set(_cuda.launch_counts) == set(_cuda.DEVICE_FUNCTIONS)
+    assert set(_cuda.launch_counts) == set(_cuda.DEVICE_FUNCTIONS) | set(
+        timers.COUNTERS)
     before = dict(_cuda.launch_counts)
     _cuda.launch("rk_fused_advect")
     assert timers.launch_stamps() == []
@@ -240,3 +241,63 @@ def test_met_read_spans_and_keys(tmp_path):
     assert table["READ_ATM"]["count"] == 1
     assert table["RUN_TIMESTEP"]["count"] == plain.timers.as_dict()[
         "RUN_TIMESTEP"]["count"]
+
+
+def test_records_name_their_card_and_adopted_parent(monkeypatch):
+    """While tracing, a record carries the index of the CUDA device
+    current on its thread (None before CUDA is initialised), and a span
+    opened on a worker thread under ``adopt`` takes the handed-out span
+    as its parent; off, ``innermost`` gives None and nothing is
+    recorded."""
+    with timers.span("off") as rec:
+        assert rec is None and timers.innermost() is None
+    timers.tracing(True)
+    with timers.span("host") as host:
+        assert timers.innermost() is host
+    assert timers.read()[0]["device"] is None
+    timers.reset()
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    monkeypatch.setattr(timers, "_event", lambda: None)
+    with timers.span("step") as parent:
+        def work():
+            with timers.adopt(parent):
+                with timers.span("shard"):
+                    with timers.span("inner"):
+                        pass
+            with timers.span("alone"):
+                pass
+
+        th = threading.Thread(target=work)
+        th.start()
+        th.join(timeout=60)
+    assert not th.is_alive()
+    recs = {r["name"]: r for r in timers.read()}
+    assert all(r["device"] == 3 for r in recs.values())
+    names = [r["name"] for r in timers.read()]
+    assert names[recs["shard"]["parent"]] == "step"
+    assert names[recs["inner"]["parent"]] == "shard"
+    assert recs["alone"]["parent"] is None
+    assert recs["shard"]["thread"] != recs["step"]["thread"]
+
+
+def test_counters_count_every_thread_under_stress():
+    """More counting threads than cores and a short switch interval: no
+    count is lost (the shards' threads count launches at once)."""
+    import sys
+    n, rounds = 16, 2000
+    before = timers.counters["shards"]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            timers.count("shards") for _ in range(rounds)])
+            for _ in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert timers.counters["shards"] - before == n * rounds
