@@ -179,9 +179,10 @@ The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 The ``{"kernels": [...]}`` line lists K1-K7 (K5 as its gather and its
-table build), the three float32 Squares draws (``rng_kernels``) and
-P1-P3; K3's entry carries its launches and times on the dd path
-(``dd_path``).
+table build), the three float32 Squares draws (``rng_kernels``), the
+plain interpolation's three kernels on the chemistry path's met
+(``interp_kernels``) and P1-P3; K3's entry carries its launches and
+times on the dd path (``dd_path``).
 
 N is fixed at 100,663,296 parcels (100M rounded up to a multiple of
 2^21, the size the JAX benchmark uses).  ``--np`` and ``--steps`` exist
@@ -558,6 +559,13 @@ def phase_chem_path(torch, n, steps, profile):
     if counts["sfc_interp"] < total:
         raise RuntimeError(f"chem path: K2 launches {counts['sfc_interp']} "
                            f"< {total}")
+    # the modules' plain interpolation: 8 locates, 11 3-D and 8 2-D
+    # interpolations a step, each one launch (a sort locates once more)
+    for name, per_step in (("interp_locate3d", 8), ("interp_time3d", 11),
+                           ("interp_time2d", 8)):
+        if counts[name] < per_step * total:
+            raise RuntimeError(f"chem path: {name} launches {counts[name]} "
+                               f"< {per_step} x {total}")
     say(json.dumps({"chem_path": stats}))
     return sim, counts
 
@@ -1366,6 +1374,75 @@ def phase_rng_kernels(torch, n):
             library_ms=None, n=n, draws=draws, bound_bytes_ms=b_bytes,
             bound_integer_ms=b_int, bound_instructions_ms=b_all,
             instructions_per_draw=[i_int, i_f32]))
+        say(f"[kernels] {name}: " + json.dumps(kernels[-1]))
+    return kernels
+
+
+#: bytes a parcel that the plain interpolation's kernels stream: the
+#: locate reads lon, lat, p and writes three int32 indices and three
+#: float32 weights; a 3-D interpolation reads the locator and the
+#: float64 time and writes one float; a 2-D one reads half the locator
+INTERP_BYTES = {"interp_locate3d": 36, "interp_time3d": 36,
+                "interp_time2d": 28}
+
+
+def phase_interp_kernels(torch, sim):
+    """The plain interpolation's kernels (``csrc/plain_interp.cu``) at
+    the main path's size on the chemistry path's met and parcels, put in
+    the order of their cells as the sort leaves them: ``locate_3d``,
+    ``interp_time_3d`` of T and ``interp_time_2d`` of the surface
+    pressure against their plain versions on the card, bit for bit; ms
+    a launch, the plain version's ms, and the bound: the streamed bytes
+    (``INTERP_BYTES``) at 3.35 TB/s."""
+    from mptrac_tpu_torch.ops import _cuda, interp
+    atm, met01 = sim.atm, sim.met.pair
+    n = atm.npmax
+    nx, ny = met01.nx, met01.ny
+    loc = interp.locate_3d(met01, atm.lon, atm.lat, atm.p)
+    perm = torch.argsort((loc.iz.long() * nx + loc.ix) * ny + loc.iy)
+    del loc
+    lon, lat, p, ts = (a[perm] for a in (atm.lon, atm.lat, atm.p,
+                                         atm.time))
+    del perm
+    torch.cuda.empty_cache()
+    loc = interp.locate_3d(met01, lon, lat, p)
+    calls = (
+        ("interp_locate3d", lambda: interp.locate_3d(met01, lon, lat, p),
+         lambda: interp.locate_3d_plain(met01, lon, lat, p)),
+        ("interp_time3d", lambda: interp.interp_time_3d(met01, "t", ts, loc),
+         lambda: interp.interp_time_3d_plain(met01, "t", ts, loc)),
+        ("interp_time2d", lambda: interp.interp_time_2d(met01, "ps", ts,
+                                                        loc),
+         lambda: interp.interp_time_2d_plain(met01, "ps", ts, loc)))
+
+    def members(out):
+        return ([getattr(out, k) for k in ("ix", "iy", "iz", "wx", "wy",
+                                           "wz")]
+                if isinstance(out, interp.Locator) else [out])
+
+    kernels = []
+    for name, kernel, plain in calls:
+        before = _cuda.launch_counts[name]
+        got = members(kernel())
+        torch.cuda.synchronize()
+        launches = _cuda.launch_counts[name] - before
+        exp = members(plain())
+        differing = sum(int((g.view(torch.int32) != e.view(torch.int32))
+                            .sum()) for g, e in zip(got, exp))
+        del got, exp
+        if launches != 1 or differing:
+            raise RuntimeError(f"{name}: {launches} launches, {differing} "
+                               "values differ from the plain version's")
+        ms = time_ms(kernel, torch)
+        plain_ms = time_ms(plain, torch, repeats=2)
+        torch.cuda.empty_cache()
+        b, by, b_bytes, b_ops = bound_ms(INTERP_BYTES[name] * n, 0.0)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="mptrac_tpu_torch/csrc/plain_interp.cu",
+            replaces=None, launches=launches, max_abs_err=0.0, ms=ms,
+            plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+            n=n, bytes_per_parcel=INTERP_BYTES[name], order="cells"))
         say(f"[kernels] {name}: " + json.dumps(kernels[-1]))
     return kernels
 
@@ -4786,6 +4863,7 @@ def main():
     phase("card_vs_cpu", phase_card_vs_cpu, torch)
     sim, counts = phase("chem_path", phase_chem_path, torch, args.np,
                         args.steps, args.profile)
+    kernels += phase("interp_kernels", phase_interp_kernels, torch, sim)
     del sim
     torch.cuda.empty_cache()
     sim = phase("pbl_path", phase_pbl_path, torch, args.np, args.steps,

@@ -30,7 +30,7 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "mptrac_tpu_torch")
 #: code that the interpolation kernels share
 SOURCES = ("rk_fused.cu", "sfc_interp.cu", "permute_cols.cu",
            "uvwt_interp.cu", "meso_sigma.cu", "lane_interp.cu",
-           "uvw_rows.cu", "probe.cu", "squares_rng.cu")
+           "uvw_rows.cu", "probe.cu", "squares_rng.cu", "plain_interp.cu")
 
 #: -fmad=false: no multiply-add contraction, so each kernel rounds where
 #: its plain PyTorch version rounds (the kernels are bound by bytes, or,
@@ -44,7 +44,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: name a profiler's trace gives the kernel).  K3's wrapper permute_cols
 #: launches permute_gather, or permute_pack and permute_rows, and its
 #: plan launches permute_count; K5 is meso_sigma_table (once per met
-#: pair) and meso_sigma (the gather from that table)
+#: pair) and meso_sigma (the gather from that table); the interp_* are
+#: ops/interp's locate_3d, interp_time_3d and interp_time_2d
 DEVICE_FUNCTIONS = {
     "rk_fused_advect": "rk_kernel", "sfc_interp": "sfc_kernel",
     "permute_gather": "gather_kernel", "permute_pack": "pack_kernel",
@@ -56,7 +57,10 @@ DEVICE_FUNCTIONS = {
     "probe_grid": "probe_grid_kernel", "probe_small": "probe_small_kernel",
     "squares_normal3": "squares_normal3_kernel",
     "squares_uniform": "squares_uniform_kernel",
-    "squares_pairs": "squares_pairs_kernel"}
+    "squares_pairs": "squares_pairs_kernel",
+    "interp_locate3d": "locate3d_kernel",
+    "interp_time3d": "interp3d_time_kernel",
+    "interp_time2d": "interp2d_time_kernel"}
 
 #: launches per kernel since the last reset (the tracer's counters,
 #: ``utils.timers.counters``): ``launch`` adds one where a wrapper
@@ -202,6 +206,15 @@ def load() -> ctypes.CDLL:
     lib.squares_uniform.argtypes = [vp, u64, i64, i64, vp]
     lib.squares_pairs.restype = i32
     lib.squares_pairs.argtypes = [vp, u64, i64, i64, vp]
+    f64 = ctypes.c_double
+    lib.interp_locate3d.restype = i32
+    lib.interp_locate3d.argtypes = [vp] * 6 + [i32] * 6 + [vp] * 6 + [i64, vp]
+    lib.interp_time3d.restype = i32
+    lib.interp_time3d.argtypes = (
+        [vp] * 8 + [i64, f64, f64, vp, i64, i32, i32, i32, vp])
+    lib.interp_time2d.restype = i32
+    lib.interp_time2d.argtypes = (
+        [vp] * 6 + [i64, f64, f64, vp, i64, i32, i32, vp])
     return lib
 
 

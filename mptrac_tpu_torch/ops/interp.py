@@ -15,6 +15,14 @@ the *lower* index, ``val = w * (a[lo] - a[hi]) + a[hi]``.
 Each public locate and interpolation function is the span ``interp``
 (``utils.timers``), recorded for the outermost call only, so that the
 span's time is the plain interpolation's whoever calls it.
+
+On a CUDA device ``locate_3d``, ``interp_time_3d`` and
+``interp_time_2d`` are one launch of a hand-written kernel each
+(``csrc/plain_interp.cu``) where their coordinates, axes, weights and
+fields are float32 and their time float64; their ``*_plain`` versions
+run the same arithmetic as eager PyTorch passes and serve CPU tensors,
+the float64 exact path and calls of mixed dtypes.  On the card both
+give the same values bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from dataclasses import dataclass
 
 import torch
 
+from mptrac_tpu_torch.ops import _cuda
 from mptrac_tpu_torch.ops.thermo import fmod
 from mptrac_tpu_torch.types import Met, grid_axes
 from mptrac_tpu_torch.utils.timers import span
@@ -108,7 +117,16 @@ class Locator:
 def locate_3d(met: Met, lon, lat, p) -> Locator:
     """Cell indices + weights for 3-D pressure-level interpolation
     (reference intpol_met_space_3d init branch, c:2995).  ``met`` may
-    be a single snapshot or a stacked [2,...] pair."""
+    be a single snapshot or a stacked [2,...] pair.  On the card, with
+    float32 coordinates and axes, one launch of ``interp_locate3d``."""
+    lons, lats, ps = grid_axes(met)
+    if _f32_cuda(lon, lat, p, lons, lats, ps):
+        return _locate_3d_cuda(met, lons, lats, ps, lon, lat, p)
+    return locate_3d_plain(met, lon, lat, p)
+
+
+def locate_3d_plain(met: Met, lon, lat, p) -> Locator:
+    """Plain PyTorch version of ``locate_3d``."""
     lons, lats, ps = grid_axes(met)
     if met.coord_type == 0:
         lon2, lat2 = check_lon_lat(lons, lats, lon, lat)
@@ -206,7 +224,20 @@ def time_weight(met01: Met, ts) -> torch.Tensor:
 @span("interp", outermost=True)
 def interp_time_3d(met01: Met, name: str, ts, loc: Locator, dtype=None):
     """Time + space interpolation of a stacked 3-D field
-    (reference intpol_met_time_3d, c:3112)."""
+    (reference intpol_met_time_3d, c:3112).  On the card, with a float32
+    field, grid and locator, a float64 time and a float32 result, one
+    launch of ``interp_time3d``."""
+    field = met01.fields3d[name]
+    if (dtype in (None, torch.float32) and _time_kernel_takes(met01, ts)
+            and _f32_cuda(field, loc.wx, loc.wy, loc.wz)
+            and _i32(loc.ix, loc.iy, loc.iz)):
+        return _interp_time_cuda("interp_time3d", met01, field, ts, loc)
+    return interp_time_3d_plain(met01, name, ts, loc, dtype)
+
+
+def interp_time_3d_plain(met01: Met, name: str, ts, loc: Locator,
+                         dtype=None):
+    """Plain PyTorch version of ``interp_time_3d``."""
     var01 = interp_3d(met01.fields3d[name], loc, dtype)
     wt = time_weight(met01, ts)
     return wt * (var01[0] - var01[1]) + var01[1]
@@ -215,13 +246,136 @@ def interp_time_3d(met01: Met, name: str, ts, loc: Locator, dtype=None):
 @span("interp", outermost=True)
 def interp_time_2d(met01: Met, name: str, ts, loc: Locator, dtype=None):
     """Time + space interpolation of a stacked 2-D surface field with
-    non-finite fallback (reference intpol_met_time_2d, c:3141)."""
+    non-finite fallback (reference intpol_met_time_2d, c:3141).  On the
+    card, as ``interp_time_3d``, one launch of ``interp_time2d``."""
+    field = met01.fields2d[name]
+    if (dtype in (None, torch.float32) and _time_kernel_takes(met01, ts)
+            and _f32_cuda(field, loc.wx, loc.wy) and _i32(loc.ix, loc.iy)):
+        return _interp_time_cuda("interp_time2d", met01, field, ts, loc)
+    return interp_time_2d_plain(met01, name, ts, loc, dtype)
+
+
+def interp_time_2d_plain(met01: Met, name: str, ts, loc: Locator,
+                         dtype=None):
+    """Plain PyTorch version of ``interp_time_2d``."""
     var01 = interp_2d(met01.fields2d[name], loc, dtype)
     wt = time_weight(met01, ts)
     v0, v1 = var01[0], var01[1]
     both = torch.isfinite(v0) & torch.isfinite(v1)
     return torch.where(both, wt * (v0 - v1) + v1,
                        torch.where(wt < 0.5, v1, v0))
+
+
+# ---------------------------------------------------------------------------
+# The kernels of csrc/plain_interp.cu
+# ---------------------------------------------------------------------------
+
+def _f32_cuda(first, *rest) -> bool:
+    """Whether ``first`` is a CUDA tensor and it and ``rest`` are all
+    float32 tensors: the calls the kernels take (devices are checked at
+    the launch)."""
+    return (isinstance(first, torch.Tensor) and first.is_cuda
+            and all(isinstance(t, torch.Tensor) and t.dtype == torch.float32
+                    for t in (first, *rest)))
+
+
+def _i32(*ts) -> bool:
+    return all(t.dtype == torch.int32 for t in ts)
+
+
+def _time_kernel_takes(met01: Met, ts) -> bool:
+    """A float64 time and a float32 grid: ``time_weight`` is then the
+    float64 ratio rounded to float32, which the kernels compute."""
+    return (isinstance(ts, torch.Tensor) and ts.dtype == torch.float64
+            and met01.lon.dtype == torch.float32)
+
+
+def _ptrs(name: str, dev: torch.device, *specs):
+    """The data pointers of (label, tensor, dtype, shape) specs, each
+    checked to be what the kernel ``name`` reads or writes: a contiguous
+    tensor of that dtype on ``dev``, of that shape."""
+    out = []
+    for label, t, dtype, shape in specs:
+        if not (isinstance(t, torch.Tensor) and t.device == dev
+                and t.dtype == dtype and t.is_contiguous()
+                and tuple(t.shape) == tuple(shape)):
+            got = (f"{t.dtype} {tuple(t.shape)} on {t.device}, contiguous "
+                   f"{t.is_contiguous()}" if isinstance(t, torch.Tensor)
+                   else type(t).__name__)
+            raise ValueError(f"{name}: {label} must be a contiguous {dtype} "
+                             f"tensor of shape {tuple(shape)} on {dev}, got "
+                             f"{got}")
+        out.append(t.data_ptr())
+    return out
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    """Launch the kernel ``name`` (``csrc/plain_interp.cu``) on ``dev``'s
+    current stream."""
+    lib = _cuda.load()
+    with torch.cuda.device(dev):
+        _cuda.launch(name)
+        code = getattr(lib, name)(*args, _cuda.current_stream(dev))
+    _cuda.check(code, name)
+
+
+def _locate_3d_cuda(met: Met, lons, lats, ps, lon, lat, p) -> Locator:
+    """``locate_3d`` as one launch of ``interp_locate3d``."""
+    lon, lat, p = (t.contiguous() for t in torch.broadcast_tensors(lon, lat,
+                                                                   p))
+    dev, shape = lon.device, lon.shape
+    nx, ny, npl = lons.numel(), lats.numel(), ps.numel()
+    if min(nx, ny, npl) < 2:
+        raise ValueError(f"locate_3d: axes of {nx}, {ny}, {npl} nodes; "
+                         "each needs two")
+    loc = Locator(*(torch.empty(shape, dtype=dt, device=dev)
+                    for dt in (torch.int32,) * 3 + (torch.float32,) * 3))
+    f32, i32 = torch.float32, torch.int32
+    ptrs = _ptrs("interp_locate3d", dev,
+                 ("lon", lon, f32, shape), ("lat", lat, f32, shape),
+                 ("p", p, f32, shape), ("lons", lons, f32, (nx,)),
+                 ("lats", lats, f32, (ny,)), ("ps", ps, f32, (npl,)),
+                 *((k, getattr(loc, k), i32, shape) for k in ("ix", "iy",
+                                                              "iz")),
+                 *((k, getattr(loc, k), f32, shape) for k in ("wx", "wy",
+                                                              "wz")))
+    if lon.numel():
+        _launch("interp_locate3d", dev, *ptrs[:6], nx, ny, npl,
+                int(met.coord_type != 0), int(met.reg_lon),
+                int(met.reg_lat), *ptrs[6:], lon.numel())
+    return loc
+
+
+def _interp_time_cuda(name: str, met01: Met, field, ts, loc: Locator):
+    """``interp_time_3d`` (``name`` "interp_time3d", ``field`` [2, nx,
+    ny, npl]) or ``interp_time_2d`` ("interp_time2d", [2, nx, ny]) as
+    one launch of the kernel ``name``.  ``ts`` holds one time or one a
+    parcel."""
+    three = name == "interp_time3d"
+    dev, shape = loc.ix.device, loc.ix.shape
+    if field.dim() != (4 if three else 3) or field.shape[0] != 2:
+        raise ValueError(f"{name}: the field must be a stacked pair "
+                         f"[2, nx, ny{', npl' if three else ''}], got "
+                         f"{tuple(field.shape)}")
+    ts = ts.contiguous()
+    one_time = ts.numel() == 1
+    members = ("ix", "iy", "iz", "wx", "wy", "wz") if three else (
+        "ix", "iy", "wx", "wy")
+    loc_t = [getattr(loc, k).contiguous() for k in members]
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    ptrs = _ptrs(name, dev, ("field", field, torch.float32, field.shape),
+                 *((k, t, torch.int32 if k[0] == "i" else torch.float32,
+                    shape) for k, t in zip(members, loc_t)),
+                 ("ts", ts, torch.float64, ts.shape if one_time else shape),
+                 ("out", out, torch.float32, shape))
+    t0, t1 = float(met01.time[0]), float(met01.time[1])
+    dt = t1 - t0
+    # the reciprocal that PyTorch multiplies by in time_weight's division
+    inv_dt = 1.0 / dt if dt != 0.0 else math.copysign(math.inf, dt)
+    if out.numel():
+        _launch(name, dev, *ptrs[:-1], 0 if one_time else 1, t1, inv_dt,
+                ptrs[-1], out.numel(), *field.shape[1:])
+    return out
 
 
 # ---------------------------------------------------------------------------

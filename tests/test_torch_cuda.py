@@ -19,6 +19,7 @@ from mptrac_tpu_torch.ops.fast_interp import (build_advect_pack,
                                               build_met_pack)
 from mptrac_tpu_torch.ops.sort import module_sort
 from mptrac_tpu_torch.physics.timesteps import module_timesteps
+from helpers import interp_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -280,6 +281,19 @@ def test_cuda_tensor_never_takes_the_plain_version(located, monkeypatch):
         rng.squares_uniform_f32(5, 10, "cuda", start=-1)
     with pytest.raises(ValueError, match="n -1"):
         rng.squares_normal_f32(5, -1, "cuda")
+
+    def plain_interp(*args, **kwargs):
+        raise AssertionError("a plain interpolation ran on the card")
+
+    for name in INTERP_PLAIN + ("interp_3d", "interp_2d", "locate_reg",
+                                "locate_irr", "time_weight"):
+        monkeypatch.setattr(interp, name, plain_interp)
+    met = interp_cases.make_met("down-irr-lonlat", "cuda")
+    lon, lat, p, ts = interp_cases.make_parcels(met, 1000)
+    loc = interp.locate_3d(met, lon, lat, p)
+    assert loc.ix.is_cuda and loc.wz.dtype == torch.float32
+    assert interp.interp_time_3d(met, "t", ts, loc).is_cuda
+    assert interp.interp_time_2d(met, "ps", ts, loc).is_cuda
 
 
 @pytest.fixture
@@ -981,3 +995,107 @@ def test_squares_launches_per_step(gpu, phys, want):
     torch.cuda.synchronize()
     assert {k: _cuda.launch_counts[k] for k in SQUARES_PLAIN} == {
         "squares_pairs": 0, **{k: 3 * v for k, v in want.items()}}
+
+
+# ------------------------------------------------- plain interpolation
+
+#: the plain versions of the three kernels of csrc/plain_interp.cu
+INTERP_PLAIN = ("locate_3d_plain", "interp_time_3d_plain",
+                "interp_time_2d_plain")
+LOC_MEMBERS = ("ix", "iy", "iz", "wx", "wy", "wz")
+
+
+def _assert_interp_kernels_exact(met, lon, lat, p, ts):
+    """Every kernel of csrc/plain_interp.cu against its plain version on
+    the same tensors, bit for bit, one launch a call."""
+    def same(g, e):
+        return g.dtype == e.dtype and torch.equal(interp_cases.bits(g),
+                                                  interp_cases.bits(e))
+
+    before = dict(_cuda.launch_counts)
+    loc = interp.locate_3d(met, lon, lat, p)
+    exp = interp.locate_3d_plain(met, lon, lat, p)
+    for k in LOC_MEMBERS:
+        g = getattr(loc, k)
+        assert g.device == lon.device and same(g, getattr(exp, k)), k
+    calls = {"interp_locate3d": 1, "interp_time3d": 0, "interp_time2d": 0}
+    for t in (ts, ts[:1].clone()):                # per parcel, one time
+        for name in interp_cases.FIELDS3:
+            assert same(interp.interp_time_3d(met, name, t, loc),
+                        interp.interp_time_3d_plain(met, name, t, loc)), (
+                name, t.numel())
+            calls["interp_time3d"] += 1
+        for name in interp_cases.FIELDS2:
+            assert same(interp.interp_time_2d(met, name, t, loc),
+                        interp.interp_time_2d_plain(met, name, t, loc)), (
+                name, t.numel())
+            calls["interp_time2d"] += 1
+    torch.cuda.synchronize(lon.device)
+    assert {k: _cuda.launch_counts[k] - before[k] for k in calls} == calls
+    return loc
+
+
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("kind", interp_cases.KINDS)
+def test_plain_interp_kernels_bit_exact(gpu, kind, order):
+    """locate_3d, interp_time_3d and interp_time_2d on the card equal
+    their plain versions bit for bit: ascending and descending pressure,
+    regular and irregular latitudes, lat/lon and Cartesian grids,
+    longitudes to wrap, points on nodes and outside the grid, NaN and
+    +-inf coordinates, cloud-free columns, non-finite corners and a
+    non-finite snapshot; n is no multiple of a block."""
+    met = interp_cases.make_met(kind, "cuda")
+    lon, lat, p, ts = interp_cases.make_parcels(met, 200_003, order)
+    loc = _assert_interp_kernels_exact(met, lon, lat, p, ts)
+    assert int(loc.ix.min()) == 0 and int(loc.iz.max()) == interp_cases.NZ - 2
+    assert bool(torch.isnan(loc.wz).any()) and bool(torch.isnan(loc.wx).any())
+
+
+def test_plain_interp_kernels_stay_plain_in_float64_and_mixed(gpu):
+    """float64 and mixed-dtype calls on the card launch nothing."""
+    for mdt, cdt in ((torch.float64, None), (torch.float32, torch.float64)):
+        met = interp_cases.make_met("up-irr-cartesian", "cuda", mdt)
+        lon, lat, p, ts = interp_cases.make_parcels(met, 1000, dtype=cdt)
+        before = dict(_cuda.launch_counts)
+        loc = interp.locate_3d(met, lon, lat, p)
+        assert loc.wx.dtype == torch.float64
+        for t in (interp.interp_time_3d(met, "t", ts, loc),
+                  interp.interp_time_2d(met, "pct", ts, loc)):
+            assert t.is_cuda and t.dtype == torch.float64
+        assert dict(_cuda.launch_counts) == before
+
+
+def test_plain_interp_kernels_on_the_second_card(gpu):
+    """With the tensors on cuda:1 and cuda:0 current, each kernel
+    launches on cuda:1's stream and equals the plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one card: no second device to launch on")
+    dev = torch.device("cuda:1")
+    met = interp_cases.make_met("down-reg-lonlat", dev)
+    lon, lat, p, ts = interp_cases.make_parcels(met, 200_003, "sorted")
+    with torch.cuda.device(0):
+        _assert_interp_kernels_exact(met, lon, lat, p, ts)
+
+
+@pytest.mark.parametrize("phys,want", [
+    ("base", {"interp_locate3d": 1, "interp_time3d": 0,
+              "interp_time2d": 0}),
+    ("chem", {"interp_locate3d": 8, "interp_time3d": 11,
+              "interp_time2d": 8})])
+def test_interp_launches_per_step(gpu, phys, want):
+    """A float32 step on the fused path interpolates with one launch a
+    call: the turbulent diffusion's locate in the base step; in the
+    chemistry step convection's 3 / 2 / 4, OH's 1 / 1 / 0, H2O2's
+    1 / 3 / 0, wet deposition's 1 / 5 / 3, dry deposition's 1 / 0 / 1
+    and the turbulent diffusion's 1 / 0 / 0 (three steps, no sort)."""
+    from mptrac_tpu_torch import sim
+    ctl, clim, met01, atm, cache = flagship.make_setup(
+        50_000, nx=36, ny=19, nz=8, device="cuda", phys=phys,
+        extra_args=("TPU_FAST", "2", "SORT_DT", "1800"))
+    s = sim.Simulation(ctl, atm, clim, met=sim.FixedMet(met01), cache=cache)
+    _cuda.reset_launch_counts()
+    s.run(write_output=False, ts=[180.0 * (i + 1) for i in range(3)])
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["permute_count"] == 0          # no sort
+    assert {k: _cuda.launch_counts[k] for k in want} == {
+        k: 3 * v for k, v in want.items()}
