@@ -7,6 +7,12 @@ one shared library with a plain C interface, loaded through ``ctypes``
 of the sources and flags: an edit rebuilds, a second process reuses.
 Nothing here runs when the module is imported; a failure to find or run
 ``nvcc`` raises with the compiler's output.  There is no fallback.
+
+``ENTRIES`` declares each C entry point once: its source, the launch
+counters and device functions it runs and its argument types.  A
+wrapper checks each tensor it passes with ``ptr`` and launches with
+``call``, which counts the launch and runs it on the device's current
+stream.
 """
 
 from __future__ import annotations
@@ -19,18 +25,15 @@ import shutil
 import subprocess
 import tempfile
 import time
+from typing import Dict, NamedTuple
+
+import torch
 
 from mptrac_tpu_torch.utils import timers
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "mptrac_tpu_torch")
-
-#: one translation unit per kernel; interp_common.cuh holds the device
-#: code that the interpolation kernels share
-SOURCES = ("rk_fused.cu", "sfc_interp.cu", "permute_cols.cu",
-           "uvwt_interp.cu", "meso_sigma.cu", "lane_interp.cu",
-           "uvw_rows.cu", "probe.cu", "squares_rng.cu", "plain_interp.cu")
 
 #: -fmad=false: no multiply-add contraction, so each kernel rounds where
 #: its plain PyTorch version rounds (the kernels are bound by bytes, or,
@@ -40,30 +43,87 @@ SOURCES = ("rk_fused.cu", "sfc_interp.cu", "permute_cols.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: the device function that each launch count's wrapper launches (the
-#: name a profiler's trace gives the kernel).  K3's wrapper permute_cols
-#: launches permute_gather, or permute_pack and permute_rows, and its
-#: plan launches permute_count; K5 is meso_sigma_table (once per met
-#: pair) and meso_sigma (the gather from that table); the interp_* are
-#: ops/interp's locate_3d, interp_time_3d and interp_time_2d
-DEVICE_FUNCTIONS = {
-    "rk_fused_advect": "rk_kernel", "sfc_interp": "sfc_kernel",
-    "permute_gather": "gather_kernel", "permute_pack": "pack_kernel",
-    "permute_rows": "rows_kernel", "permute_count": "count_kernel",
-    "uvwt_interp": "uvwt_kernel", "meso_sigma_table": "sigma_table_kernel",
-    "meso_sigma": "meso_gather_kernel", "lane_interp_uvwt": "lane_uvwt_kernel",
-    "lane_meso_sigma": "lane_meso_kernel",
-    "uvw_rows_interp": "uvw_rows_kernel", "probe_lane": "probe_lane_kernel",
-    "probe_grid": "probe_grid_kernel", "probe_small": "probe_small_kernel",
-    "squares_normal3": "squares_normal3_kernel",
-    "squares_uniform": "squares_uniform_kernel",
-    "squares_pairs": "squares_pairs_kernel",
-    "interp_locate3d": "locate3d_kernel",
-    "interp_time3d": "interp3d_time_kernel",
-    "interp_time2d": "interp2d_time_kernel"}
+
+class Entry(NamedTuple):
+    """A C entry point of the library: its source under ``csrc/``, the
+    launch counters it can add, each with the device function it
+    launches (the name a profiler's trace gives the kernel; none for an
+    entry that launches nothing), and the ctypes of its parameters, the
+    trailing stream of a launch left out."""
+    source: str
+    kernels: Dict[str, str]
+    argtypes: tuple
+
+
+vp, i32, i64, u64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_ulonglong)
+f32, f64, vpp = ctypes.c_float, ctypes.c_double, ctypes.POINTER(vp)
+
+
+def _entries(*rows) -> Dict[str, Entry]:
+    """The table from rows (entry point, source, kernels, argtypes);
+    kernels a device function names the entry's one counter, under the
+    entry's own name."""
+    return {name: Entry(src, {name: k} if isinstance(k, str) else k, args)
+            for name, src, k, args in rows}
+
+
+#: every C entry point of the library, the one place each is declared.
+#: K3's permute_cols launches permute_gather, or permute_pack and
+#: permute_rows, as its plan says, and the plan's count pass is
+#: permute_count; K5 is meso_sigma_table (once per met pair) and
+#: meso_sigma (the gather from that table); the interp_* are
+#: ops/interp's locate_3d, interp_time_3d and interp_time_2d;
+#: rk_fused_attributes reads the compiled K1 and launches nothing.
+#: interp_common.cuh holds the device code that the interpolation
+#: kernels share.
+ENTRIES = _entries(
+    ("rk_fused_advect", "rk_fused.cu", "rk_kernel",
+     (i32,) + (vp,) * 9 + (i64, i32, i32, i32) + (f32,) * 7 + (i32,) * 4),
+    ("rk_fused_attributes", "rk_fused.cu", {}, (i32, i32, i32, vp)),
+    ("sfc_interp", "sfc_interp.cu", "sfc_kernel",
+     (vp,) * 6 + (i64, i32, i32, i32, u64)),
+    ("permute_cols", "permute_cols.cu",
+     {"permute_gather": "gather_kernel", "permute_pack": "pack_kernel",
+      "permute_rows": "rows_kernel"},
+     (vpp, vpp, i32, vp, vp, vp, i64, i32, i32, vp)),
+    ("permute_count", "permute_cols.cu", "count_kernel", (vp, i64, vp)),
+    ("uvwt_interp", "uvwt_interp.cu", "uvwt_kernel",
+     (vp,) * 7 + (i64, i32, i32, i32)),
+    ("meso_sigma_table", "meso_sigma.cu", "sigma_table_kernel",
+     (vp, vp, i32, i32, i32)),
+    ("meso_sigma", "meso_sigma.cu", "meso_gather_kernel", (vp, vp, vp, i64)),
+    ("lane_interp_uvwt", "lane_interp.cu", "lane_uvwt_kernel",
+     (vp,) * 4 + (i64,)),
+    ("lane_meso_sigma", "lane_interp.cu", "lane_meso_kernel",
+     (vp,) * 3 + (i64,)),
+    ("uvw_rows_interp", "uvw_rows.cu", "uvw_rows_kernel",
+     (vp,) * 4 + (i64, i32, i32, i64)),
+    ("probe_lane", "probe.cu", "probe_lane_kernel", (vp,) * 4 + (i64, i64)),
+    ("probe_grid", "probe.cu", "probe_grid_kernel", (vp, vp, i64, i32)),
+    ("probe_small", "probe.cu", "probe_small_kernel", (vp,) * 3 + (i64,)),
+    ("squares_normal3", "squares_rng.cu", "squares_normal3_kernel",
+     (vp, u64, i64, i64, i64)),
+    ("squares_uniform", "squares_rng.cu", "squares_uniform_kernel",
+     (vp, u64, i64, i64)),
+    ("squares_pairs", "squares_rng.cu", "squares_pairs_kernel",
+     (vp, u64, i64, i64)),
+    ("interp_locate3d", "plain_interp.cu", "locate3d_kernel",
+     (vp,) * 6 + (i32,) * 6 + (vp,) * 6 + (i64,)),
+    ("interp_time3d", "plain_interp.cu", "interp3d_time_kernel",
+     (vp,) * 8 + (i64, f64, f64, vp, i64, i32, i32, i32)),
+    ("interp_time2d", "plain_interp.cu", "interp2d_time_kernel",
+     (vp,) * 6 + (i64, f64, f64, vp, i64, i32, i32)))
+
+#: one translation unit per kernel file
+SOURCES = tuple(dict.fromkeys(e.source for e in ENTRIES.values()))
+
+#: the device function of each launch counter
+DEVICE_FUNCTIONS = {c: k for e in ENTRIES.values()
+                    for c, k in e.kernels.items()}
 
 #: launches per kernel since the last reset (the tracer's counters,
-#: ``utils.timers.counters``): ``launch`` adds one where a wrapper
+#: ``utils.timers.counters``): ``launch`` adds one where ``call``
 #: launches the kernel and nowhere else
 launch_counts = timers.counters
 launch_counts.update(dict.fromkeys(DEVICE_FUNCTIONS, 0))
@@ -164,93 +224,45 @@ def build() -> str:
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(build())
-    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                         ctypes.c_float)
-    lib.rk_fused_advect.restype = i32
-    lib.rk_fused_advect.argtypes = (
-        [i32] + [vp] * 9 + [i64, i32, i32, i32] + [f32] * 7 + [i32] * 4
-        + [vp])
-    lib.rk_fused_attributes.restype = i32
-    lib.rk_fused_attributes.argtypes = [i32, i32, i32, vp]
-    lib.sfc_interp.restype = i32
-    lib.sfc_interp.argtypes = (
-        [vp] * 6 + [i64, i32, i32, i32, ctypes.c_ulonglong, vp])
-    lib.permute_cols.restype = i32
-    lib.permute_cols.argtypes = [
-        ctypes.POINTER(vp), ctypes.POINTER(vp), i32, vp, vp, vp, i64, i32,
-        i32, vp, vp]
-    lib.permute_count.restype = i32
-    lib.permute_count.argtypes = [vp, i64, vp, vp]
-    lib.uvwt_interp.restype = i32
-    lib.uvwt_interp.argtypes = [vp] * 7 + [i64, i32, i32, i32, vp]
-    lib.meso_sigma_table.restype = i32
-    lib.meso_sigma_table.argtypes = [vp, vp, i32, i32, i32, vp]
-    lib.meso_sigma.restype = i32
-    lib.meso_sigma.argtypes = [vp] * 3 + [i64, vp]
-    lib.lane_interp_uvwt.restype = i32
-    lib.lane_interp_uvwt.argtypes = [vp] * 4 + [i64, vp]
-    lib.lane_meso_sigma.restype = i32
-    lib.lane_meso_sigma.argtypes = [vp] * 3 + [i64, vp]
-    lib.uvw_rows_interp.restype = i32
-    lib.uvw_rows_interp.argtypes = [vp] * 4 + [i64, i32, i32, i64, vp]
-    lib.probe_lane.restype = i32
-    lib.probe_lane.argtypes = [vp] * 4 + [i64, i64, vp]
-    lib.probe_grid.restype = i32
-    lib.probe_grid.argtypes = [vp, vp, i64, i32, vp]
-    lib.probe_small.restype = i32
-    lib.probe_small.argtypes = [vp] * 3 + [i64, vp]
-    u64 = ctypes.c_ulonglong
-    lib.squares_normal3.restype = i32
-    lib.squares_normal3.argtypes = [vp, u64, i64, i64, i64, vp]
-    lib.squares_uniform.restype = i32
-    lib.squares_uniform.argtypes = [vp, u64, i64, i64, vp]
-    lib.squares_pairs.restype = i32
-    lib.squares_pairs.argtypes = [vp, u64, i64, i64, vp]
-    f64 = ctypes.c_double
-    lib.interp_locate3d.restype = i32
-    lib.interp_locate3d.argtypes = [vp] * 6 + [i32] * 6 + [vp] * 6 + [i64, vp]
-    lib.interp_time3d.restype = i32
-    lib.interp_time3d.argtypes = (
-        [vp] * 8 + [i64, f64, f64, vp, i64, i32, i32, i32, vp])
-    lib.interp_time2d.restype = i32
-    lib.interp_time2d.argtypes = (
-        [vp] * 6 + [i64, f64, f64, vp, i64, i32, i32, vp])
+    for name, e in ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(e.argtypes) + ([vp] if e.kernels else [])
     return lib
 
 
-def check(code: int, name: str) -> None:
-    """Raise on a non-zero ``cudaGetLastError()`` from a launch."""
+def call(name: str, device, *args, counters=None) -> None:
+    """Call the entry point ``name`` with ``args``.  An entry that
+    launches runs on ``device``'s current stream, with ``device``
+    current, and counts each of ``counters`` (default: its own) just
+    before; an entry that launches nothing takes ``args`` alone.  Raises
+    on a non-zero ``cudaGetLastError()``."""
+    kernels = ENTRIES[name].kernels
+    fn = getattr(load(), name)
+    if not kernels:
+        code = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            for c in kernels if counters is None else counters:
+                launch(c)
+            code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         raise RuntimeError(
             f"CUDA kernel {name} was refused at launch (cudaError {code})")
 
 
-def require_f32_cuda(name: str, t, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor (of
-    ``shape`` when given)."""
-    import torch
-    if not (isinstance(t, torch.Tensor) and t.is_cuda
-            and t.dtype == torch.float32 and t.is_contiguous()):
-        raise ValueError(f"{name}: expected a contiguous float32 CUDA "
-                         f"tensor, got {t!r:.200}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-
-
-def require_i32_cuda(name: str, t, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous int32 CUDA tensor (of
-    ``shape`` when given)."""
-    import torch
-    if not (isinstance(t, torch.Tensor) and t.is_cuda
-            and t.dtype == torch.int32 and t.is_contiguous()):
-        raise ValueError(f"{name}: expected a contiguous int32 CUDA "
-                         f"tensor, got {t!r:.200}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-
-
-def current_stream(device) -> int:
-    import torch
-    return torch.cuda.current_stream(device).cuda_stream
+def ptr(name: str, label: str, t, dtype, shape, device) -> int:
+    """The data pointer of ``t``, the argument ``label`` of the entry
+    point ``name``, checked to be what the kernel reads or writes: a
+    contiguous tensor of ``dtype`` on ``device``, of ``shape`` (a tuple)
+    unless that is None."""
+    if not (isinstance(t, torch.Tensor) and t.device == device
+            and t.dtype == dtype and t.is_contiguous()
+            and (shape is None or t.shape == shape)):
+        got = (f"{t.dtype} {tuple(t.shape)} on {t.device}, contiguous "
+               f"{t.is_contiguous()}" if isinstance(t, torch.Tensor)
+               else type(t).__name__)
+        of = "" if shape is None else f" of shape {tuple(shape)}"
+        raise ValueError(f"{name}: {label} must be a contiguous {dtype} "
+                         f"tensor{of} on {device}, got {got}")
+    return t.data_ptr()

@@ -290,35 +290,6 @@ def _time_kernel_takes(met01: Met, ts) -> bool:
             and met01.lon.dtype == torch.float32)
 
 
-def _ptrs(name: str, dev: torch.device, *specs):
-    """The data pointers of (label, tensor, dtype, shape) specs, each
-    checked to be what the kernel ``name`` reads or writes: a contiguous
-    tensor of that dtype on ``dev``, of that shape."""
-    out = []
-    for label, t, dtype, shape in specs:
-        if not (isinstance(t, torch.Tensor) and t.device == dev
-                and t.dtype == dtype and t.is_contiguous()
-                and tuple(t.shape) == tuple(shape)):
-            got = (f"{t.dtype} {tuple(t.shape)} on {t.device}, contiguous "
-                   f"{t.is_contiguous()}" if isinstance(t, torch.Tensor)
-                   else type(t).__name__)
-            raise ValueError(f"{name}: {label} must be a contiguous {dtype} "
-                             f"tensor of shape {tuple(shape)} on {dev}, got "
-                             f"{got}")
-        out.append(t.data_ptr())
-    return out
-
-
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Launch the kernel ``name`` (``csrc/plain_interp.cu``) on ``dev``'s
-    current stream."""
-    lib = _cuda.load()
-    with torch.cuda.device(dev):
-        _cuda.launch(name)
-        code = getattr(lib, name)(*args, _cuda.current_stream(dev))
-    _cuda.check(code, name)
-
-
 def _locate_3d_cuda(met: Met, lons, lats, ps, lon, lat, p) -> Locator:
     """``locate_3d`` as one launch of ``interp_locate3d``."""
     lon, lat, p = (t.contiguous() for t in torch.broadcast_tensors(lon, lat,
@@ -328,22 +299,17 @@ def _locate_3d_cuda(met: Met, lons, lats, ps, lon, lat, p) -> Locator:
     if min(nx, ny, npl) < 2:
         raise ValueError(f"locate_3d: axes of {nx}, {ny}, {npl} nodes; "
                          "each needs two")
-    loc = Locator(*(torch.empty(shape, dtype=dt, device=dev)
-                    for dt in (torch.int32,) * 3 + (torch.float32,) * 3))
-    f32, i32 = torch.float32, torch.int32
-    ptrs = _ptrs("interp_locate3d", dev,
-                 ("lon", lon, f32, shape), ("lat", lat, f32, shape),
-                 ("p", p, f32, shape), ("lons", lons, f32, (nx,)),
-                 ("lats", lats, f32, (ny,)), ("ps", ps, f32, (npl,)),
-                 *((k, getattr(loc, k), i32, shape) for k in ("ix", "iy",
-                                                              "iz")),
-                 *((k, getattr(loc, k), f32, shape) for k in ("wx", "wy",
-                                                              "wz")))
+    f32, name = torch.float32, "interp_locate3d"
+    ins = [_cuda.ptr(name, k, t, f32, s, dev) for k, t, s in (
+        ("lon", lon, shape), ("lat", lat, shape), ("p", p, shape),
+        ("lons", lons, (nx,)), ("lats", lats, (ny,)), ("ps", ps, (npl,)))]
+    outs = [torch.empty(shape, dtype=dt, device=dev)
+            for dt in (torch.int32,) * 3 + (f32,) * 3]
     if lon.numel():
-        _launch("interp_locate3d", dev, *ptrs[:6], nx, ny, npl,
-                int(met.coord_type != 0), int(met.reg_lon),
-                int(met.reg_lat), *ptrs[6:], lon.numel())
-    return loc
+        _cuda.call(name, dev, *ins, nx, ny, npl, int(met.coord_type != 0),
+                   int(met.reg_lon), int(met.reg_lat),
+                   *(t.data_ptr() for t in outs), lon.numel())
+    return Locator(*outs)
 
 
 def _interp_time_cuda(name: str, met01: Met, field, ts, loc: Locator):
@@ -362,19 +328,20 @@ def _interp_time_cuda(name: str, met01: Met, field, ts, loc: Locator):
     members = ("ix", "iy", "iz", "wx", "wy", "wz") if three else (
         "ix", "iy", "wx", "wy")
     loc_t = [getattr(loc, k).contiguous() for k in members]
+    ins = [_cuda.ptr(name, "field", field, torch.float32, field.shape, dev)]
+    ins += [_cuda.ptr(name, k, t, torch.int32 if k[0] == "i"
+                      else torch.float32, shape, dev)
+            for k, t in zip(members, loc_t)]
+    ins.append(_cuda.ptr(name, "ts", ts, torch.float64,
+                         ts.shape if one_time else shape, dev))
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    ptrs = _ptrs(name, dev, ("field", field, torch.float32, field.shape),
-                 *((k, t, torch.int32 if k[0] == "i" else torch.float32,
-                    shape) for k, t in zip(members, loc_t)),
-                 ("ts", ts, torch.float64, ts.shape if one_time else shape),
-                 ("out", out, torch.float32, shape))
     t0, t1 = float(met01.time[0]), float(met01.time[1])
     dt = t1 - t0
     # the reciprocal that PyTorch multiplies by in time_weight's division
     inv_dt = 1.0 / dt if dt != 0.0 else math.copysign(math.inf, dt)
     if out.numel():
-        _launch(name, dev, *ptrs[:-1], 0 if one_time else 1, t1, inv_dt,
-                ptrs[-1], out.numel(), *field.shape[1:])
+        _cuda.call(name, dev, *ins, 0 if one_time else 1, t1, inv_dt,
+                   out.data_ptr(), out.numel(), *field.shape[1:])
     return out
 
 

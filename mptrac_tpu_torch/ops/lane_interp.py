@@ -65,15 +65,33 @@ def meso_sigma_plain(pack64, base):
     return torch.stack(rk_fused._plain_sigma16(_corner_rows(pack64, base)))
 
 
-def _require_tables(name, tables, base):
+def _require_tables(name, tables):
     pack64 = tables.pack64
     if pack64.dim() != 2 or pack64.shape[1] != LANES:
         raise ValueError(f"{name}: expected a [ncell, {LANES}] table, got "
                          f"{tuple(pack64.shape)}")
-    if pack64.is_cuda:
-        _cuda.require_f32_cuda(name + " pack64", pack64)
-        _cuda.require_i32_cuda(name + " base", base)
     return pack64
+
+
+def _uvwt_cuda(pack64, base, weights):
+    n = base.shape[0]
+    dev, f32, name = pack64.device, torch.float32, "lane_interp_uvwt"
+    t = _cuda.ptr(name, "pack64", pack64, f32, None, dev)
+    b = _cuda.ptr(name, "base", base, torch.int32, None, dev)
+    w = _cuda.ptr(name, "weights", weights, f32, (4, n), dev)
+    out = torch.empty((4, n), dtype=f32, device=dev)
+    _cuda.call(name, dev, t, b, w, out.data_ptr(), n)
+    return out
+
+
+def _sigma_cuda(pack64, base):
+    n = base.shape[0]
+    dev, f32, name = pack64.device, torch.float32, "lane_meso_sigma"
+    t = _cuda.ptr(name, "pack64", pack64, f32, None, dev)
+    b = _cuda.ptr(name, "base", base, torch.int32, None, dev)
+    out = torch.empty((3, n), dtype=f32, device=dev)
+    _cuda.call(name, dev, t, b, out.data_ptr(), n)
+    return out
 
 
 def interp_uvwt_sorted(tables: LaneTables, base, weights):
@@ -82,36 +100,18 @@ def interp_uvwt_sorted(tables: LaneTables, base, weights):
     base [n] int32 table row of the parcel's cell; weights [4, n] f32
     (wx, wy, wz, wt).  Returns (uvw [3, n] f32, t [n] f32, served) with
     served == 1.0."""
-    pack64 = _require_tables("interp_uvwt_sorted", tables, base)
-    n = base.shape[0]
-    if not pack64.is_cuda:
+    pack64 = _require_tables("interp_uvwt_sorted", tables)
+    if pack64.is_cuda:
+        out = _uvwt_cuda(pack64, base, weights)
+    else:
         out = interp_uvwt_plain(pack64, base, weights)
-        return out[0:3], out[3], 1.0
-    _cuda.require_f32_cuda("interp_uvwt_sorted weights", weights, (4, n))
-    lib = _cuda.load()
-    out = torch.empty((4, n), dtype=torch.float32, device=pack64.device)
-    with torch.cuda.device(pack64.device):
-        _cuda.launch("lane_interp_uvwt")
-        code = lib.lane_interp_uvwt(
-            pack64.data_ptr(), base.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), n, _cuda.current_stream(pack64.device))
-    _cuda.check(code, "lane_interp_uvwt")
     return out[0:3], out[3], 1.0
 
 
 def meso_sigma_sorted(tables: LaneTables, base):
     """Subgrid wind sigma (u, v, w) of each parcel's cell:
     (sig [3, n] f32, served) with served == 1.0."""
-    pack64 = _require_tables("meso_sigma_sorted", tables, base)
-    n = base.shape[0]
-    if not pack64.is_cuda:
-        return meso_sigma_plain(pack64, base), 1.0
-    lib = _cuda.load()
-    out = torch.empty((3, n), dtype=torch.float32, device=pack64.device)
-    with torch.cuda.device(pack64.device):
-        _cuda.launch("lane_meso_sigma")
-        code = lib.lane_meso_sigma(
-            pack64.data_ptr(), base.data_ptr(), out.data_ptr(), n,
-            _cuda.current_stream(pack64.device))
-    _cuda.check(code, "lane_meso_sigma")
-    return out, 1.0
+    pack64 = _require_tables("meso_sigma_sorted", tables)
+    if pack64.is_cuda:
+        return _sigma_cuda(pack64, base), 1.0
+    return meso_sigma_plain(pack64, base), 1.0

@@ -59,19 +59,18 @@ def interp_uvw_sorted(pack, base, weights, strides: Tuple[int, int]):
     ok = torch.ones(n, dtype=torch.bool, device=pack.device)
     if not pack.is_cuda:
         return interp_uvw_plain(pack, base, weights, (ox, oy)), ok
-    _cuda.require_f32_cuda("interp_uvw_sorted pack", pack)
-    _cuda.require_i32_cuda("interp_uvw_sorted base", base, (n,))
-    _cuda.require_f32_cuda("interp_uvw_sorted weights", weights, (n, 4))
-    if pack.numel() >= 2 ** 31 or weights.data_ptr() % 16:
+    return _uvw_cuda(pack, base, weights, ox, oy), ok
+
+
+def _uvw_cuda(pack, base, weights, ox, oy):
+    n = base.shape[0]
+    dev, f32, name = pack.device, torch.float32, "uvw_rows_interp"
+    t = _cuda.ptr(name, "pack", pack, f32, None, dev)
+    b = _cuda.ptr(name, "base", base, torch.int32, (n,), dev)
+    w = _cuda.ptr(name, "weights", weights, f32, (n, 4), dev)
+    if pack.numel() >= 2 ** 31 or w % 16:
         raise ValueError("interp_uvw_sorted: table too large for 32-bit "
                          "row arithmetic, or weights not 16-byte aligned")
-    lib = _cuda.load()
-    out = torch.empty((n, 3), dtype=torch.float32, device=pack.device)
-    with torch.cuda.device(pack.device):
-        _cuda.launch("uvw_rows_interp")
-        code = lib.uvw_rows_interp(
-            pack.data_ptr(), base.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), n, ox, oy, pack.shape[0],
-            _cuda.current_stream(pack.device))
-    _cuda.check(code, "uvw_rows_interp")
-    return out, ok
+    out = torch.empty((n, 3), dtype=f32, device=dev)
+    _cuda.call(name, dev, t, b, w, out.data_ptr(), n, ox, oy, pack.shape[0])
+    return out

@@ -274,33 +274,23 @@ def rk_plain(pack: CellPack, nstage: int, lon, lat, p, dtp, wt0):
 
 def _rk_cuda(pack: CellPack, nstage: int, lon, lat, p, dtp, wt0):
     n = lon.shape[0]
-    for name, t in (("lon", lon), ("lat", lat), ("p", p), ("dt", dtp),
-                    ("wt0", wt0)):
-        _cuda.require_f32_cuda("rk_fused_advect " + name, t, (n,))
-    _cuda.require_f32_cuda("rk_fused_advect table", pack.table,
-                           (pack.npl, pack.nx, pack.ny, 8))
-    _cuda.require_f32_cuda("rk_fused_advect lat_axis", pack.lat_axis,
-                           (pack.ny,))
-    _cuda.require_f32_cuda("rk_fused_advect p_axis", pack.p_axis,
-                           (pack.npl,))
+    dev, f32, name = lon.device, torch.float32, "rk_fused_advect"
+    args = [_cuda.ptr(name, "table", pack.table, f32,
+                      (pack.npl, pack.nx, pack.ny, 8), dev),
+            _cuda.ptr(name, "lat_axis", pack.lat_axis, f32, (pack.ny,), dev),
+            _cuda.ptr(name, "p_axis", pack.p_axis, f32, (pack.npl,), dev)]
+    args += [_cuda.ptr(name, k, t, f32, (n,), dev) for k, t in (
+        ("lon", lon), ("lat", lat), ("p", p), ("dt", dtp), ("wt0", wt0))]
     if pack.table.numel() >= 2 ** 31:
         raise ValueError("rk_fused_advect: table too large for 32-bit "
                          "cell arithmetic")
     _rk_fracs(nstage)       # raises on an unsupported scheme
-    lib = _cuda.load()
-    out = torch.empty((7, n), dtype=torch.float32, device=lon.device)
-    with torch.cuda.device(lon.device):
-        _cuda.launch("rk_fused_advect")
-        code = lib.rk_fused_advect(
-            nstage, pack.table.data_ptr(), pack.lat_axis.data_ptr(),
-            pack.p_axis.data_ptr(), lon.data_ptr(), lat.data_ptr(),
-            p.data_ptr(), dtp.data_ptr(), wt0.data_ptr(), out.data_ptr(),
-            n, pack.nx, pack.ny, pack.npl, pack.lon0, pack.dlon,
-            pack.lon0, pack.lon_last, pack.lat_lo, pack.lat_hi,
-            pack.inv_tden, int(pack.cartesian), int(pack.lat_reg),
-            int(pack.lat_asc), int(pack.p_asc),
-            _cuda.current_stream(lon.device))
-    _cuda.check(code, "rk_fused_advect")
+    out = torch.empty((7, n), dtype=f32, device=dev)
+    _cuda.call(name, dev, nstage, *args, out.data_ptr(), n, pack.nx,
+               pack.ny, pack.npl, pack.lon0, pack.dlon, pack.lon0,
+               pack.lon_last, pack.lat_lo, pack.lat_hi, pack.inv_tden,
+               int(pack.cartesian), int(pack.lat_reg), int(pack.lat_asc),
+               int(pack.p_asc))
     return tuple(out[r] for r in range(7))
 
 
@@ -310,8 +300,7 @@ def kernel_attributes(pack: CellPack, nstage: int) -> dict:
     resident blocks a multiprocessor at its launch configuration."""
     _rk_fracs(nstage)
     out = (ctypes.c_int * 3)()
-    _cuda.check(_cuda.load().rk_fused_attributes(
-        nstage, pack.ny, pack.npl, out), "rk_fused_attributes")
+    _cuda.call("rk_fused_attributes", None, nstage, pack.ny, pack.npl, out)
     return {"registers": out[0], "local_bytes": out[1],
             "blocks_per_sm": out[2]}
 

@@ -138,18 +138,6 @@ def _uniform_at(ctr: int, start: int, count: int, device):
             + lo32.to(torch.float64)) * (0.5 ** 64)
 
 
-def _squares_cuda(name: str, out: torch.Tensor, *args) -> torch.Tensor:
-    """Launch the Squares kernel ``name`` (``csrc/squares_rng.cu``) into
-    ``out``: the counter mod 2^64, then the kernel's int64 sizes."""
-    lib = _cuda.load()
-    with torch.cuda.device(out.device):
-        _cuda.launch(name)
-        code = getattr(lib, name)(out.data_ptr(), *args,
-                                  _cuda.current_stream(out.device))
-    _cuda.check(code, name)
-    return out
-
-
 def squares_uniform_f32_plain(ctr: int, n: int, device="cuda",
                               start: int = 0) -> Tuple[torch.Tensor, int]:
     """Plain PyTorch version of ``squares_uniform_f32``: the chain in
@@ -177,8 +165,13 @@ def squares_uniform_f32(ctr: int, n: int, device="cuda", start: int = 0
         return squares_uniform_f32_plain(ctr, n, dev, start)
     if n < 0 or start < 0:
         raise ValueError(f"squares_uniform_f32: n {n}, start {start}")
+    return _uniform_f32_cuda(ctr, n, dev, start)
+
+
+def _uniform_f32_cuda(ctr, n, dev, start):
     out = torch.empty(n + 1, dtype=torch.float32, device=dev)
-    _squares_cuda("squares_uniform", out, ctr & _M64, start, n + 1)
+    _cuda.call("squares_uniform", out.device, out.data_ptr(), ctr & _M64,
+               start, n + 1)
     return out, (ctr + n + 1) & _M64
 
 
@@ -210,8 +203,13 @@ def squares_normal_f32(ctr: int, n: int, device="cuda", start: int = 0
         return squares_normal_f32_plain(ctr, n, dev, start)
     if n < 0 or start < 0:
         raise ValueError(f"squares_normal_f32: n {n}, start {start}")
+    return _normal_f32_cuda(ctr, n, dev, start)
+
+
+def _normal_f32_cuda(ctr, n, dev, start):
     out = torch.empty(n, dtype=torch.float32, device=dev)
-    _squares_cuda("squares_pairs", out, ctr & _M64, start, n)
+    _cuda.call("squares_pairs", out.device, out.data_ptr(), ctr & _M64,
+               start, n)
     return out, (ctr + n + 1) & _M64
 
 
@@ -259,8 +257,13 @@ def squares_normal3_f32(ctr: int, n: int, device="cuda",
     first, total = (0, n) if part is None else part
     if n < 0 or first < 0 or first + n > total:
         raise ValueError(f"squares_normal3_f32: n {n}, part {part}")
+    return _normal3_f32_cuda(ctr, n, dev, first, total)
+
+
+def _normal3_f32_cuda(ctr, n, dev, first, total):
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    _squares_cuda("squares_normal3", out, ctr & _M64, first, total, n)
+    _cuda.call("squares_normal3", out.device, out.data_ptr(), ctr & _M64,
+               first, total, n)
     return out, (ctr + 3 * total + 1) & _M64
 
 

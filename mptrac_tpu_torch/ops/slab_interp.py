@@ -100,23 +100,19 @@ def sfc_interp_plain(table, basexy, wx, wy, wt, fields):
 def _sfc_cuda(table, basexy, wx, wy, wt, fields):
     n = basexy.shape[0]
     nx, ny = table.shape[:2]
-    _cuda.require_f32_cuda("sfc_interp table", table, (nx, ny, 2, 16))
-    for name, t in (("wx", wx), ("wy", wy), ("wt", wt)):
-        _cuda.require_f32_cuda("sfc_interp " + name, t, (n,))
-    _cuda.require_i32_cuda("sfc_interp basexy", basexy, (n,))
+    dev, f32 = table.device, torch.float32
+    args = [_cuda.ptr("sfc_interp", "table", table, f32, (nx, ny, 2, 16),
+                      dev),
+            _cuda.ptr("sfc_interp", "basexy", basexy, torch.int32, (n,),
+                      dev)]
+    args += [_cuda.ptr("sfc_interp", k, t, f32, (n,), dev)
+             for k, t in (("wx", wx), ("wy", wy), ("wt", wt))]
     packed = 0
     for k, f in enumerate(fields):
         packed |= f << (4 * k)
-    lib = _cuda.load()
-    out = torch.empty((len(fields), n), dtype=torch.float32,
-                      device=table.device)
-    with torch.cuda.device(table.device):
-        _cuda.launch("sfc_interp")
-        code = lib.sfc_interp(
-            table.data_ptr(), basexy.data_ptr(), wx.data_ptr(),
-            wy.data_ptr(), wt.data_ptr(), out.data_ptr(), n, nx, ny,
-            len(fields), packed, _cuda.current_stream(table.device))
-    _cuda.check(code, "sfc_interp")
+    out = torch.empty((len(fields), n), dtype=f32, device=dev)
+    _cuda.call("sfc_interp", dev, *args, out.data_ptr(), n, nx, ny,
+               len(fields), packed)
     return out
 
 
@@ -185,11 +181,12 @@ def permute_sectors_plain(perm):
     return int((fresh & read).sum())
 
 
-def _require_perm_cuda(perm):
-    if not (perm.is_cuda and perm.dtype == torch.int64
-            and perm.is_contiguous()):
-        raise ValueError("permute_cols perm: expected a contiguous int64 "
-                         f"CUDA tensor, got {perm.dtype} on {perm.device}")
+def _sectors_cuda(perm):
+    dev = perm.device
+    p = _cuda.ptr("permute_count", "perm", perm, torch.int64, None, dev)
+    out = torch.zeros(1, dtype=torch.int64, device=dev)
+    _cuda.call("permute_count", dev, p, perm.shape[0], out.data_ptr())
+    return int(out)
 
 
 def permute_sectors(perm):
@@ -198,15 +195,7 @@ def permute_sectors(perm):
     plain version for a CPU tensor."""
     if not perm.is_cuda:
         return permute_sectors_plain(perm)
-    _require_perm_cuda(perm)
-    out = torch.zeros(1, dtype=torch.int64, device=perm.device)
-    with torch.cuda.device(perm.device):
-        _cuda.launch("permute_count")
-        code = _cuda.load().permute_count(
-            perm.data_ptr(), perm.shape[0], out.data_ptr(),
-            _cuda.current_stream(perm.device))
-    _cuda.check(code, "permute_count")
-    return int(out)
+    return _sectors_cuda(perm)
 
 
 def permute_plan(perm):
@@ -227,24 +216,20 @@ def permute_row_words(ncols32, has64):
 
 def _permute_cuda(cols32, perm, col64, plan):
     n = perm.shape[0]
-    _require_perm_cuda(perm)
+    dev = perm.device
+    p = _cuda.ptr("permute_cols", "perm", perm, torch.int64, None, dev)
     if len(cols32) > PERMUTE_MAX_COLS:
         raise ValueError(f"permute_cols: {len(cols32)} float32 columns, "
                          f"at most {PERMUTE_MAX_COLS} per launch")
     m = (cols32[0] if cols32 else col64 if col64 is not None
          else perm).shape[0]                   # the columns' length
-    for k, c in enumerate(cols32):
-        _cuda.require_f32_cuda(f"permute_cols column {k}", c, (m,))
-    if col64 is not None and not (
-            col64.is_cuda and col64.dtype == torch.float64
-            and col64.is_contiguous() and tuple(col64.shape) == (m,)):
-        raise ValueError("permute_cols col64: expected a contiguous "
-                         f"float64 CUDA tensor of shape ({m},)")
+    src = [_cuda.ptr("permute_cols", f"column {k}", c, torch.float32, (m,),
+                     dev) for k, c in enumerate(cols32)]
+    src64 = (_cuda.ptr("permute_cols", "col64", col64, torch.float64, (m,),
+                       dev) if col64 is not None else None)
     if m != n and plan != "gather":
         raise ValueError(f"permute_cols: {n} indices into columns of {m}: "
                          "only the gather path takes a selection")
-    lib = _cuda.load()
-    dev = perm.device
     k = len(cols32)
     out32 = torch.empty((k, n), dtype=torch.float32, device=dev)
     out64 = (torch.empty(n, dtype=torch.float64, device=dev)
@@ -259,20 +244,13 @@ def _permute_cuda(cols32, perm, col64, plan):
         # scratch of the row path, freed when the sort's kernels are done
         rows = torch.empty(n * rw, dtype=torch.float32, device=dev)
     arr = ctypes.c_void_p * max(k, 1)
-    src = arr(*[c.data_ptr() for c in cols32])
-    dst = arr(*[out32[j].data_ptr() for j in range(k)])
-    with torch.cuda.device(dev):
-        for kernel in (("permute_pack", "permute_rows") if plan == "rows"
-                       else ("permute_gather",)):
-            _cuda.launch(kernel)
-        code = lib.permute_cols(
-            src, dst, k,
-            col64.data_ptr() if col64 is not None else None,
-            out64.data_ptr() if out64 is not None else None,
-            perm.data_ptr(), n, 1 if plan == "rows" else 0, rw,
-            rows.data_ptr() if rows is not None else None,
-            _cuda.current_stream(dev))
-    _cuda.check(code, "permute_cols")
+    _cuda.call("permute_cols", dev, arr(*src),
+               arr(*[out32[j].data_ptr() for j in range(k)]), k, src64,
+               out64.data_ptr() if out64 is not None else None, p, n,
+               1 if plan == "rows" else 0, rw,
+               rows.data_ptr() if rows is not None else None,
+               counters=(("permute_pack", "permute_rows") if plan == "rows"
+                         else ("permute_gather",)))
     return out32, out64
 
 
@@ -317,19 +295,13 @@ def uvwt_interp_plain(table, cell, wx, wy, wz, wt):
 def _uvwt_cuda(table, cell, wx, wy, wz, wt):
     n = cell.shape[0]
     npl, nx, ny = table.shape[:3]
-    _cuda.require_f32_cuda("uvwt_interp table", table)
-    _cuda.require_i32_cuda("uvwt_interp cell", cell, (n,))
-    for name, t in (("wx", wx), ("wy", wy), ("wz", wz), ("wt", wt)):
-        _cuda.require_f32_cuda("uvwt_interp " + name, t, (n,))
-    lib = _cuda.load()
-    out = torch.empty((4, n), dtype=torch.float32, device=table.device)
-    with torch.cuda.device(table.device):
-        _cuda.launch("uvwt_interp")
-        code = lib.uvwt_interp(
-            table.data_ptr(), cell.data_ptr(), wx.data_ptr(),
-            wy.data_ptr(), wz.data_ptr(), wt.data_ptr(), out.data_ptr(),
-            n, nx, ny, npl, _cuda.current_stream(table.device))
-    _cuda.check(code, "uvwt_interp")
+    dev, f32 = table.device, torch.float32
+    args = [_cuda.ptr("uvwt_interp", "table", table, f32, None, dev),
+            _cuda.ptr("uvwt_interp", "cell", cell, torch.int32, (n,), dev)]
+    args += [_cuda.ptr("uvwt_interp", k, t, f32, (n,), dev)
+             for k, t in (("wx", wx), ("wy", wy), ("wz", wz), ("wt", wt))]
+    out = torch.empty((4, n), dtype=f32, device=dev)
+    _cuda.call("uvwt_interp", dev, *args, out.data_ptr(), n, nx, ny, npl)
     return out
 
 
@@ -399,17 +371,16 @@ def sigma_table(table):
     _require_cell_table("sigma_table", table)
     if not table.is_cuda:
         return sigma_table_plain(table)
+    return _sigma_table_cuda(table)
+
+
+def _sigma_table_cuda(table):
     npl, nx, ny = table.shape[:3]
-    _cuda.require_f32_cuda("meso_sigma_table table", table)
-    lib = _cuda.load()
-    sigT = torch.empty(_sigma_shape(table), dtype=torch.float32,
-                       device=table.device)
-    with torch.cuda.device(table.device):
-        _cuda.launch("meso_sigma_table")
-        code = lib.meso_sigma_table(table.data_ptr(), sigT.data_ptr(), nx,
-                                    ny, npl,
-                                    _cuda.current_stream(table.device))
-    _cuda.check(code, "meso_sigma_table")
+    dev = table.device
+    t = _cuda.ptr("meso_sigma_table", "table", table, torch.float32, None,
+                  dev)
+    sigT = torch.empty(_sigma_shape(table), dtype=torch.float32, device=dev)
+    _cuda.call("meso_sigma_table", dev, t, sigT.data_ptr(), nx, ny, npl)
     return sigT
 
 
@@ -427,16 +398,11 @@ def meso_gather_plain(sigT, cell):
 
 def _meso_cuda(cell, sigT):
     n = cell.shape[0]
-    _cuda.require_f32_cuda("meso_sigma sigT", sigT)
-    _cuda.require_i32_cuda("meso_sigma cell", cell, (n,))
-    lib = _cuda.load()
-    out = torch.empty((3, n), dtype=torch.float32, device=sigT.device)
-    with torch.cuda.device(sigT.device):
-        _cuda.launch("meso_sigma")
-        code = lib.meso_sigma(sigT.data_ptr(), cell.data_ptr(),
-                              out.data_ptr(), n,
-                              _cuda.current_stream(sigT.device))
-    _cuda.check(code, "meso_sigma")
+    dev = sigT.device
+    s = _cuda.ptr("meso_sigma", "sigT", sigT, torch.float32, None, dev)
+    c = _cuda.ptr("meso_sigma", "cell", cell, torch.int32, (n,), dev)
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    _cuda.call("meso_sigma", dev, s, c, out.data_ptr(), n)
     return out
 
 

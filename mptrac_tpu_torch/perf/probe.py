@@ -120,20 +120,19 @@ def probe_lane(packT, base, w):
     if packT.dim() != 2 or packT.shape[0] != LANES:
         raise ValueError(f"probe_lane: expected a [{LANES}, ncell] table, "
                          f"got {tuple(packT.shape)}")
-    n = base.shape[0]
     if not packT.is_cuda:
         return probe_lane_plain(packT, base, w)
-    _cuda.require_f32_cuda("probe_lane packT", packT)
-    _cuda.require_i32_cuda("probe_lane base", base)
-    _cuda.require_f32_cuda("probe_lane w", w, (4, n))
-    lib = _cuda.load()
-    out = torch.empty((8, n), dtype=torch.float32, device=packT.device)
-    with torch.cuda.device(packT.device):
-        _cuda.launch("probe_lane")
-        code = lib.probe_lane(packT.data_ptr(), base.data_ptr(), w.data_ptr(),
-                              out.data_ptr(), n, packT.shape[1],
-                              _cuda.current_stream(packT.device))
-    _cuda.check(code, "probe_lane")
+    return _lane_cuda(packT, base, w)
+
+
+def _lane_cuda(packT, base, w):
+    n = base.shape[0]
+    dev, f32, name = packT.device, torch.float32, "probe_lane"
+    t = _cuda.ptr(name, "packT", packT, f32, None, dev)
+    b = _cuda.ptr(name, "base", base, torch.int32, None, dev)
+    wp = _cuda.ptr(name, "w", w, f32, (4, n), dev)
+    out = torch.empty((8, n), dtype=f32, device=dev)
+    _cuda.call(name, dev, t, b, wp, out.data_ptr(), n, packT.shape[1])
     return out
 
 
@@ -152,15 +151,14 @@ def probe_grid(x, G):
                          f"{tuple(x.shape)}")
     if not x.is_cuda:
         return probe_grid_plain(x, G)
-    _cuda.require_f32_cuda("probe_grid x", x)
-    lib = _cuda.load()
+    return _grid_cuda(x, cp)
+
+
+def _grid_cuda(x, cp):
+    xp = _cuda.ptr("probe_grid", "x", x, torch.float32, None, x.device)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _cuda.launch("probe_grid")
-        code = lib.probe_grid(x.data_ptr(), out.data_ptr(),
-                              x.shape[1] // cp, cp,
-                              _cuda.current_stream(x.device))
-    _cuda.check(code, "probe_grid")
+    _cuda.call("probe_grid", x.device, xp, out.data_ptr(), x.shape[1] // cp,
+               cp)
     return out
 
 
@@ -178,16 +176,16 @@ def probe_small(tab, idx):
                          f"{tuple(tab.shape)}")
     if not tab.is_cuda:
         return probe_small_plain(tab, idx)
-    _cuda.require_f32_cuda("probe_small tab", tab)
-    _cuda.require_i32_cuda("probe_small idx", idx)
+    return _small_cuda(tab, idx)
+
+
+def _small_cuda(tab, idx):
     n = idx.shape[0]
-    lib = _cuda.load()
-    out = torch.empty((8, n), dtype=torch.float32, device=tab.device)
-    with torch.cuda.device(tab.device):
-        _cuda.launch("probe_small")
-        code = lib.probe_small(tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                               n, _cuda.current_stream(tab.device))
-    _cuda.check(code, "probe_small")
+    dev, name = tab.device, "probe_small"
+    t = _cuda.ptr(name, "tab", tab, torch.float32, None, dev)
+    i = _cuda.ptr(name, "idx", idx, torch.int32, None, dev)
+    out = torch.empty((8, n), dtype=torch.float32, device=dev)
+    _cuda.call(name, dev, t, i, out.data_ptr(), n)
     return out
 
 

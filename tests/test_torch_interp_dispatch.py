@@ -36,7 +36,7 @@ def no_kernel(monkeypatch):
         raise AssertionError("a CPU call reached the CUDA kernels")
 
     monkeypatch.setattr(_cuda, "load", refuse)
-    monkeypatch.setattr(interp, "_launch", refuse)
+    monkeypatch.setattr(_cuda, "call", refuse)
 
 
 @pytest.mark.parametrize("dtypes", ["float32", "float64", "mixed"])
@@ -76,9 +76,9 @@ def _entry_params(name):
 def launches(monkeypatch):
     """The launches the wrappers make, as (name, device, args), none run."""
     calls = []
-    monkeypatch.setattr(interp, "_launch",
-                        lambda name, dev, *args: calls.append((name, dev,
-                                                               args)))
+    monkeypatch.setattr(_cuda, "call",
+                        lambda name, dev, *args, counters=None: calls.append(
+                            (name, dev, args)))
     return calls
 
 
