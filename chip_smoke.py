@@ -350,15 +350,20 @@ def phase_build():
     return usage
 
 
+def turb_diffusion(ctl):
+    """Whether the step runs the turbulent diffusion."""
+    return bool(ctl.diffusion) and any(
+        v > 0 for v in (ctl.turb_dx_pbl, ctl.turb_dz_pbl, ctl.turb_dx_trop,
+                        ctl.turb_dz_trop, ctl.turb_dx_strat,
+                        ctl.turb_dz_strat))
+
+
 def rng3_draws(ctl):
     """``module_rng3`` calls a step: the turbulent diffusion, the PBL
     scheme and the mesoscale diffusion draw 3n normals each."""
     if not ctl.diffusion:
         return 0
-    turb = any(v > 0 for v in (ctl.turb_dx_pbl, ctl.turb_dz_pbl,
-                                ctl.turb_dx_trop, ctl.turb_dz_trop,
-                                ctl.turb_dx_strat, ctl.turb_dz_strat))
-    return (int(turb) + int(ctl.turb_pbl_scheme == 1)
+    return (int(turb_diffusion(ctl)) + int(ctl.turb_pbl_scheme == 1)
             + int(ctl.turb_mesox > 0 or ctl.turb_mesoz > 0))
 
 
@@ -375,6 +380,7 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base",
     (sim, counts, stats)."""
     from mptrac_tpu_torch import flagship
     from mptrac_tpu_torch.ops import _cuda
+    from mptrac_tpu_torch.physics import diffusion
     from mptrac_tpu_torch.sim import FixedMet, Simulation
 
     t0 = time.time()
@@ -435,14 +441,21 @@ def drive_flagship(torch, tag, n, steps, profile, extra_args, phys="base",
     if c.rng_ctr != want_ctr:
         raise RuntimeError(f"{tag}: rng_ctr {c.rng_ctr}, expected "
                            f"{want_ctr}")
-    # float32 Squares (RNG_TYPE 0 and 1): one kernel launch a draw
+    # float32 Squares (RNG_TYPE 0 and 1): one kernel launch a draw, but
+    # the turbulent diffusion's kernel, where it runs, draws its own
+    # normals
     sq = ctl.rng_type in (0, 1) and a.lon.dtype == torch.float32
-    want_sq = (total * rng3_draws(ctl) * sq, total * conv * sq)
-    got_sq = (counts["squares_normal3"], counts["squares_uniform"])
+    turb = int(turb_diffusion(ctl)
+               and diffusion.kernel_takes(ctl, a, sim.pack.sfcT))
+    want_sq = (total * (rng3_draws(ctl) - turb) * sq, total * conv * sq,
+               total * turb)
+    got_sq = (counts["squares_normal3"], counts["squares_uniform"],
+              counts["diff_turb"])
     if got_sq != want_sq or counts["squares_pairs"] != 0:
         raise RuntimeError(f"{tag}: Squares launches (normal3, uniform) "
-                           f"{got_sq}, pairs {counts['squares_pairs']}, "
-                           f"expected {want_sq}, 0")
+                           f"and diff_turb launches {got_sq}, pairs "
+                           f"{counts['squares_pairs']}, expected {want_sq}, "
+                           "0")
     want_m = math.exp(-dt_mod / ctl.tdec_trop) ** total
     if phys in ("chem", "full"):
         # OH chemistry and dry deposition take mass beyond the decay
@@ -500,16 +513,18 @@ def phase_main_path(torch, n, steps, profile):
     if counts["rk_fused_advect"] != total:
         raise RuntimeError(f"K1 launches {counts['rk_fused_advect']} != "
                            f"steps {total}")
-    if counts["sfc_interp"] < total:
-        raise RuntimeError(f"K2 launches {counts['sfc_interp']} < {total}")
+    if counts["diff_turb"] != total:
+        raise RuntimeError(f"diff_turb launches {counts['diff_turb']} != "
+                           f"steps {total}")
     say(json.dumps({"main_path": stats}))
     return sim, counts
 
 
 def phase_unfused_path(torch, n, steps, profile):
     """The unfused path: per step K4 once per RK node and once in the
-    meteo sampling, K5's gather once (its table once per met pair), K2
-    for the turbulent diffusion and for the sampled surface pressure."""
+    meteo sampling, K5's gather once (its table once per met pair), the
+    turbulent diffusion's kernel once and K2 for the sampled surface
+    pressure."""
     qnt = ("NQ", str(len(UNFUSED_QNT)))
     for k, name in enumerate(UNFUSED_QNT):
         qnt += (f"QNT_NAME[{k}]", name)
@@ -519,7 +534,7 @@ def phase_unfused_path(torch, n, steps, profile):
     # K5: its table once (one met pair, a FixedMet), its gather a step
     want = {"uvwt_interp": (sim.ctl.advect + 1) * total,
             "meso_sigma_table": 1, "meso_sigma": total,
-            "sfc_interp": 2 * total, "rk_fused_advect": 0}
+            "sfc_interp": total, "diff_turb": total, "rk_fused_advect": 0}
     for name, k in want.items():
         if counts[name] != k:
             raise RuntimeError(f"unfused path: {name} launched "
@@ -543,7 +558,7 @@ def phase_unfused_path(torch, n, steps, profile):
 def phase_chem_path(torch, n, steps, profile):
     """The flagship with the chemistry (phys ``chem``: convection, OH and
     H2O2 chemistry, wet and dry deposition of SO2) on the fused path:
-    one K1 launch a step, K2 for the turbulent diffusion, K3 for the
+    one K1 launch a step, the turbulent diffusion's kernel, K3 for the
     sorts; the modules of the chemistry are plain PyTorch."""
     sim, counts, stats = drive_flagship(torch, "chem", n, steps, profile,
                                         ("TPU_FAST", "2"), phys="chem")
@@ -556,12 +571,12 @@ def phase_chem_path(torch, n, steps, profile):
     if counts["rk_fused_advect"] != total:
         raise RuntimeError(f"chem path: K1 launches "
                            f"{counts['rk_fused_advect']} != steps {total}")
-    if counts["sfc_interp"] < total:
-        raise RuntimeError(f"chem path: K2 launches {counts['sfc_interp']} "
-                           f"< {total}")
-    # the modules' plain interpolation: 8 locates, 11 3-D and 8 2-D
+    if counts["diff_turb"] != total:
+        raise RuntimeError(f"chem path: diff_turb launches "
+                           f"{counts['diff_turb']} != {total}")
+    # the modules' plain interpolation: 7 locates, 11 3-D and 8 2-D
     # interpolations a step, each one launch (a sort locates once more)
-    for name, per_step in (("interp_locate3d", 8), ("interp_time3d", 11),
+    for name, per_step in (("interp_locate3d", 7), ("interp_time3d", 11),
                            ("interp_time2d", 8)):
         if counts[name] < per_step * total:
             raise RuntimeError(f"chem path: {name} launches {counts[name]} "
@@ -685,8 +700,8 @@ def phase_pbl_path(torch, n, steps, profile):
         ("TPU_FAST", "2") + qnt_args(PBL_QNT) + PBL_ARGS,
         prepare=lambda met01, atm: plant_pbl(torch, met01, atm))
     total = WARMUP_STEPS + steps
-    if counts["rk_fused_advect"] != total or counts["sfc_interp"] < total:
-        raise RuntimeError(f"pbl path: K1/K2 launches {counts}")
+    if counts["rk_fused_advect"] != total or counts["diff_turb"] != total:
+        raise RuntimeError(f"pbl path: K1/diff_turb launches {counts}")
     a = sim.atm
     shares = branch_shares(torch, sim)
     if not (sum(v > 0 for k, v in shares.items() if k != "inactive") >= 3
@@ -1447,6 +1462,80 @@ def phase_interp_kernels(torch, sim):
     return kernels
 
 
+#: bytes a parcel that the turbulent diffusion's kernel streams: it reads
+#: lon, lat, p, the float64 time and the float32 dt and writes lon, lat, p
+DIFF_TURB_BYTES = 36
+
+
+def phase_diff_turb_kernel(torch, sim, counts):
+    """The turbulent diffusion's kernel (``csrc/diff_turb.cu``) at the
+    main path's size, on its met, parcels (in the order its last sort
+    left them) and timesteps: ``module_diff_turb`` against
+    ``module_diff_turb_plain`` on the card, lon, lat, p and the counter
+    bit for bit, one launch a call; the main path's launches
+    (``counts``), ms a launch, the plain body's ms, and the bound: the
+    streamed bytes (``DIFF_TURB_BYTES``) at 3.35 TB/s, or the three
+    normals' instructions (``SQUARES_INSTR``) at one a lane a cycle, the
+    integer ones at half that rate."""
+    from mptrac_tpu_torch.ops import _cuda
+    from mptrac_tpu_torch.physics import diffusion
+    ctl, clim, met01, atm, cache = (sim.ctl, sim.clim, sim.met.pair,
+                                    sim.atm, sim.cache)
+    sfcT = sim.pack.sfcT
+    n = atm.npmax
+
+    def kernel():
+        return diffusion.module_diff_turb(ctl, cache, clim, met01, atm, sfcT)
+
+    def plain():
+        return diffusion.module_diff_turb_plain(ctl, cache, clim, met01, atm,
+                                                sfcT)
+
+    before = _cuda.launch_counts["diff_turb"]
+    got, gc = kernel()
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts["diff_turb"] - before
+    exp, ec = plain()
+    differing = {k: int((getattr(got, k).view(torch.int32)
+                         != getattr(exp, k).view(torch.int32)).sum())
+                 for k in ("lon", "lat", "p")}
+    moved = int((got.p != atm.p).sum())
+    del got, exp
+    if launches != 1 or gc.rng_ctr != ec.rng_ctr or any(differing.values()):
+        raise RuntimeError(f"diff_turb: {launches} launches, counter "
+                           f"{gc.rng_ctr} against {ec.rng_ctr}, values "
+                           f"differing from the plain body's {differing}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = time_ms(kernel, torch)
+    peak_kernel = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain_ms = time_ms(plain, torch, repeats=2)
+    peak_plain = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    i_int, i_f32 = SQUARES_INSTR["squares_normal3"]
+    per_instr = 2e3 * 3 * n / PEAK_F32_OPS_S     # ms an instruction a draw
+    b_bytes = 1e3 * DIFF_TURB_BYTES * n / PEAK_BYTES_S
+    b_int, b_all = 2 * per_instr * i_int, per_instr * (i_int + i_f32)
+    bound = max(b_bytes, b_int, b_all)
+    out = dict(
+        name="diff_turb", route="cuda",
+        source="mptrac_tpu_torch/csrc/diff_turb.cu", replaces=None,
+        launches=counts["diff_turb"], max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms,
+        bound_ms=bound,
+        bound_by=("bytes" if bound == b_bytes else "integer instructions"
+                  if bound == b_int else "instructions"),
+        library_ms=None, n=n, bytes_per_parcel=DIFF_TURB_BYTES,
+        bound_bytes_ms=b_bytes, bound_draws_ms=max(b_int, b_all),
+        moved_vertically=moved, peak_extra_bytes=peak_kernel,
+        plain_peak_extra_bytes=peak_plain, order="sorted by the run")
+    say("[kernels] diff_turb: " + json.dumps(out))
+    return [out]
+
+
 def phase_kernels_unfused(torch, sim, counts):
     """K4 and K5 against their plain versions on the unfused path's
     tensors, and K6 and K7, the same functions on other table layouts,
@@ -1916,10 +2005,10 @@ def phase_trac_path(torch, n):
             raise RuntimeError(f"trac path: {sim.nsorts} sorts, K3 count "
                                f"passes {counts['permute_count']}, "
                                "expected 2")
-        if counts["rk_fused_advect"] != nadv or counts["sfc_interp"] < nadv:
+        if counts["rk_fused_advect"] != nadv or counts["diff_turb"] < nadv:
             raise RuntimeError(
-                f"trac path: K1 launches {counts['rk_fused_advect']}, K2 "
-                f"{counts['sfc_interp']} in {nadv} steps")
+                f"trac path: K1 launches {counts['rk_fused_advect']}, "
+                f"diff_turb {counts['diff_turb']} in {nadv} steps")
         if len(builds) != 2:
             raise RuntimeError(f"trac path: {len(builds)} table builds, "
                                "expected one per met pair (2)")
@@ -2156,9 +2245,10 @@ def phase_bin_path(torch, trac):
     if sim.nsorts != 2 or counts["permute_count"] != 2 or (
             counts["permute_gather"] + counts["permute_rows"] != 2):
         raise RuntimeError(f"bin path: {sim.nsorts} sorts, K3 {counts}")
-    if counts["rk_fused_advect"] != nadv or counts["sfc_interp"] < nadv:
-        raise RuntimeError(f"bin path: K1 {counts['rk_fused_advect']}, K2 "
-                           f"{counts['sfc_interp']} launches in {nadv} steps")
+    if counts["rk_fused_advect"] != nadv or counts["diff_turb"] < nadv:
+        raise RuntimeError(f"bin path: K1 {counts['rk_fused_advect']}, "
+                           f"diff_turb {counts['diff_turb']} launches in "
+                           f"{nadv} steps")
     plain = [st["ms"] for st in steps[1:]
              if not (st["met_files"] or st["sorted"] or st["output"])]
     reads = sim.met.reads
@@ -2935,7 +3025,7 @@ def phase_output_path(torch, n, trac_summary):
             raise RuntimeError(f"output path: {len(step_ms)} steps, "
                                f"expected {nsteps}")
         if (sim.nsorts != 2 or counts["rk_fused_advect"] != nsteps
-                or counts["sfc_interp"] < nsteps):
+                or counts["diff_turb"] < nsteps):
             raise RuntimeError(f"output path: {sim.nsorts} sorts, launches "
                                f"{counts}")
         # the steps with nothing but the timestep and the per-step
@@ -3373,10 +3463,10 @@ def phase_zeta_path(torch, n):
     """``tools.trac`` from files with diabatic zeta advection at full
     size: two CLaMS met files of 360x181x61 model levels, N parcels with
     m and zeta (drawn within every column's range from seed 0), float32
-    on the unfused kernels (the surface and sigma kernels in the
-    diffusion), 2 warm-up and 10 timed steps.  Milliseconds a step, of
+    on the unfused kernels (the turbulent diffusion's kernel and the
+    sigma kernel), 2 warm-up and 10 timed steps.  Milliseconds a step, of
     each column search and each field interpolated at it, the bytes they
-    gather, the K2 and K5 launches, the met files' seconds and peak
+    gather, the kernels' launches, the met files' seconds and peak
     memory."""
     import numpy as np
 
@@ -3456,8 +3546,10 @@ def phase_zeta_path(torch, n):
         steps, ts_ms = tm.ms("step"), tm.ms("timestep")
         if len(steps) != ZETA_STEPS:
             raise RuntimeError(f"zeta path: {len(steps)} steps")
-        if (counts["rk_fused_advect"] != 0 or counts["sfc_interp"] < 10
-                or counts["meso_sigma"] < 10):
+        # the diffusion's own kernel reads K2's table; the meteo samples no
+        # surface quantity (m and zeta alone), so K2 itself never runs
+        if (counts["rk_fused_advect"] != 0 or counts["diff_turb"] < 10
+                or counts["meso_sigma"] < 10 or counts["sfc_interp"] != 0):
             raise RuntimeError(f"zeta path: launches {counts}")
         a = sim.atm
         for name, x in (("lon", a.lon), ("lat", a.lat), ("p", a.p),
@@ -4851,6 +4943,8 @@ def main():
     sim, counts = phase("main_path", phase_main_path, torch, args.np,
                         args.steps, args.profile)
     kernels = phase("kernels", phase_kernels, torch, sim, counts, usage)
+    kernels += phase("diff_turb_kernel", phase_diff_turb_kernel, torch, sim,
+                     counts)
     del sim                     # one simulation is freed before the next
     torch.cuda.empty_cache()
     sim, counts = phase("unfused_path", phase_unfused_path, torch, args.np,

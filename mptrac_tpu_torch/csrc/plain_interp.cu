@@ -52,62 +52,14 @@
 
 namespace {
 
-using mptrac::mix;
+using mptrac::bilinear_nn;
+using mptrac::HorizontalGrid;
+using mptrac::locate_irr;
+using mptrac::time_nn;
+
+using mptrac::SMEM_AXIS_FLOATS;
 
 constexpr int BLOCK = 256;
-// 1/360 rounded to float32, the reciprocal PyTorch multiplies by in x / 360.0
-constexpr float INV360 = 1.0f / 360.0f;
-// axes of up to this many floats in all are staged in shared memory
-constexpr int SMEM_AXIS_FLOATS = 12288;
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return a != a ? a : (b != b ? b : fmaxf(a, b));
-}
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return a != a ? a : (b != b ? b : fminf(a, b));
-}
-
-__device__ __forceinline__ int clamp_i(int i, int lo, int hi) {
-  return i < lo ? lo : (i > hi ? hi : i);
-}
-
-// locate_reg: floor((x - xx[0]) / (xx[1] - xx[0])) in [0, n-2]
-__device__ __forceinline__ int locate_reg(const float* xx, int n, float x) {
-  return clamp_i((int)floorf((x - xx[0]) / (xx[1] - xx[0])), 0, n - 2);
-}
-
-// locate_irr: the count of nodes at or below x (ascending axis) or above x
-// (descending), 0 for NaN, less one, in [0, n-2]
-__device__ __forceinline__ int locate_irr(const float* xx, int n, float x) {
-  int lo = 0, hi = n;
-  if (xx[1] > xx[0]) {
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (xx[mid] <= x) lo = mid + 1; else hi = mid;
-    }
-  } else {
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (xx[mid] > x) lo = mid + 1; else hi = mid;
-    }
-  }
-  if (isnan(x)) lo = 0;
-  return clamp_i(lo - 1, 0, n - 2);
-}
-
-// _axis_vals: (xx[i], xx[i+1]), by arithmetic on an exactly regular axis
-__device__ __forceinline__ void axis_vals(const float* xx, int i, bool reg,
-                                          float& v0, float& v1) {
-  if (reg) {
-    const float d = xx[1] - xx[0];
-    v0 = xx[0] + (float)i * d;
-    v1 = v0 + d;
-  } else {
-    v0 = xx[i];
-    v1 = xx[i + 1];
-  }
-}
 
 template <bool SMEM>
 __global__ void __launch_bounds__(BLOCK) locate3d_kernel(
@@ -131,45 +83,34 @@ __global__ void __launch_bounds__(BLOCK) locate3d_kernel(
     lats = axes + nx;
     ps = axes + nx + ny;
   }
-  const float ylo = nan_min(lats[0], lats[ny - 1]);
-  const float yhi = nan_max(lats[0], lats[ny - 1]);
-  const float xlo = nan_min(lons[0], lons[nx - 1]);
-  const float xhi = nan_max(lons[0], lons[nx - 1]);
+  const HorizontalGrid grid(lons, lats, nx, ny, cartesian, reg_lon,
+                            reg_lat);
   const long long stride = (long long)gridDim.x * BLOCK;
   for (long long i = (long long)blockIdx.x * BLOCK + threadIdx.x; i < n;
        i += stride) {
     const float lon = __ldcs(lon_ + i), lat = __ldcs(lat_ + i),
                 p = __ldcs(p_ + i);
-    float lon2;
-    if (cartesian) {   // check_cartesian
-      lon2 = nan_min(nan_max(lon, xlo), xhi);
-    } else {           // check_lon_lat, fmod as ops/thermo.fmod
-      lon2 = lon - truncf(lon * INV360) * 360.0f;
-      if (lon2 < lons[0]) lon2 = lon2 + 360.0f;
-      if (lon2 > lons[nx - 1]) lon2 = lon2 - 360.0f;
-    }
-    const float lat2 = nan_min(nan_max(lat, ylo), yhi);
     const int iz = locate_irr(ps, npl, p);
-    const int ix = locate_reg(lons, nx, lon2);
-    const int iy = locate_irr(lats, ny, lat2);
+    int ix, iy;
+    float wx, wy;
+    grid.locate(lon, lat, ix, iy, wx, wy);
     const float p0 = ps[iz], p1 = ps[iz + 1];
-    float x0, x1, y0, y1;
-    axis_vals(lons, ix, reg_lon, x0, x1);
-    axis_vals(lats, iy, reg_lat, y0, y1);
     __stcs(ix_ + i, ix);
     __stcs(iy_ + i, iy);
     __stcs(iz_ + i, iz);
-    __stcs(wx_ + i, (x1 - lon2) / (x1 - x0));
-    __stcs(wy_ + i, (y1 - lat2) / (y1 - y0));
+    __stcs(wx_ + i, wx);
+    __stcs(wy_ + i, wy);
     __stcs(wz_ + i, (p1 - p) / (p1 - p0));
   }
 }
 
-// time_weight: (t1 - ts) / (t1 - t0) in float64, rounded once to float32
-__device__ __forceinline__ float time_weight(const double* ts, long long i,
-                                             long long ts_step, double t1,
-                                             double inv_dt) {
-  return (float)((t1 - __ldcs(ts + i * ts_step)) * inv_dt);
+// time_weight of the time of parcel i, or of the one time (ts_step 0)
+__device__ __forceinline__ float parcel_time_weight(const double* ts,
+                                                    long long i,
+                                                    long long ts_step,
+                                                    double t1,
+                                                    double inv_dt) {
+  return mptrac::time_weight(__ldcs(ts + i * ts_step), t1, inv_dt);
 }
 
 // field [2, nx, ny, npl]: corner k = dx*4 + dy*2 + dz of snapshot s is
@@ -200,7 +141,7 @@ __global__ void __launch_bounds__(BLOCK) interp3d_time_kernel(
         c[k + 1][s] = __ldg(f + 1);
       }
     }
-    const float wt = time_weight(ts, i, ts_step, t1, inv_dt);
+    const float wt = parcel_time_weight(ts, i, ts_step, t1, inv_dt);
     __stcs(out + i, mptrac::trilerp_time(c, 0, 1, __ldcs(wx_ + i),
                                          __ldcs(wy_ + i), __ldcs(wz_ + i),
                                          wt));
@@ -223,18 +164,11 @@ __global__ void __launch_bounds__(BLOCK) interp2d_time_kernel(
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const float* f = field + s * snap + c00;
-      const float a00 = __ldg(f), a01 = __ldg(f + 1);
-      const float a10 = __ldg(f + ny), a11 = __ldg(f + ny + 1);
-      const bool ok = isfinite(a00) && isfinite(a01) && isfinite(a10) &&
-                      isfinite(a11);
-      const float bilin = mix(wx, mix(wy, a00, a01), mix(wy, a10, a11));
-      const float nn = wy < 0.5f ? (wx < 0.5f ? a11 : a01)
-                                 : (wx < 0.5f ? a10 : a00);
-      v[s] = ok ? bilin : nn;
+      v[s] = bilinear_nn(__ldg(f), __ldg(f + 1), __ldg(f + ny),
+                         __ldg(f + ny + 1), wx, wy);
     }
-    const float wt = time_weight(ts, i, ts_step, t1, inv_dt);
-    const bool both = isfinite(v[0]) && isfinite(v[1]);
-    __stcs(out + i, both ? mix(wt, v[0], v[1]) : (wt < 0.5f ? v[1] : v[0]));
+    const float wt = parcel_time_weight(ts, i, ts_step, t1, inv_dt);
+    __stcs(out + i, time_nn(v[0], v[1], wt));
   }
 }
 

@@ -18,9 +18,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+#include "interp_common.cuh"
 
-constexpr int kFields = 16;   // fields per (column, snapshot)
+namespace {
 
 __global__ void __launch_bounds__(256) sfc_kernel(
     const float* __restrict__ table, const int* __restrict__ basexy,
@@ -32,37 +32,11 @@ __global__ void __launch_bounds__(256) sfc_kernel(
   const int b = basexy[i];
   const int ix = b / ny;
   const int iy = b - ix * ny;
-  // corners clamp at the grid edge, like the edge-padded table they replace
-  const int ix1 = min(ix + 1, nx - 1);
-  const int iy1 = min(iy + 1, ny - 1);
-  const size_t c00 = (size_t)(ix * ny + iy) * 2 * kFields;
-  const size_t c01 = (size_t)(ix * ny + iy1) * 2 * kFields;
-  const size_t c10 = (size_t)(ix1 * ny + iy) * 2 * kFields;
-  const size_t c11 = (size_t)(ix1 * ny + iy1) * 2 * kFields;
+  const mptrac::SfcCorners corners(ix, iy, nx, ny);
   const float wx = wx_[i], wy = wy_[i], wt = wt_[i];
-
   for (int f = 0; f < nfields; ++f) {
     const int fi = (int)((fields_packed >> (4 * f)) & 15ULL);
-    float v[2];
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int o = s * kFields + fi;
-      const float a00 = __ldg(table + c00 + o);
-      const float a01 = __ldg(table + c01 + o);
-      const float a10 = __ldg(table + c10 + o);
-      const float a11 = __ldg(table + c11 + o);
-      const bool ok = isfinite(a00) && isfinite(a01) && isfinite(a10) &&
-                      isfinite(a11);
-      const float aux0 = wy * (a00 - a01) + a01;
-      const float aux1 = wy * (a10 - a11) + a11;
-      const float bilin = wx * (aux0 - aux1) + aux1;
-      const float nn = wy < 0.5f ? (wx < 0.5f ? a11 : a01)
-                                 : (wx < 0.5f ? a10 : a00);
-      v[s] = ok ? bilin : nn;
-    }
-    const bool both = isfinite(v[0]) && isfinite(v[1]);
-    out[(size_t)f * n + i] =
-        both ? wt * (v[0] - v[1]) + v[1] : (wt < 0.5f ? v[1] : v[0]);
+    out[(size_t)f * n + i] = corners.value(table, fi, wx, wy, wt);
   }
 }
 

@@ -75,8 +75,9 @@ def _entries(*rows) -> Dict[str, Entry]:
 #: meso_sigma (the gather from that table); the interp_* are
 #: ops/interp's locate_3d, interp_time_3d and interp_time_2d;
 #: rk_fused_attributes reads the compiled K1 and launches nothing.
-#: interp_common.cuh holds the device code that the interpolation
-#: kernels share.
+#: diff_turb is physics/diffusion's module_diff_turb.  interp_common.cuh
+#: holds the device code that the interpolation kernels share, squares.cuh
+#: the Squares draws that squares_rng.cu and diff_turb.cu share.
 ENTRIES = _entries(
     ("rk_fused_advect", "rk_fused.cu", "rk_kernel",
      (i32,) + (vp,) * 9 + (i64, i32, i32, i32) + (f32,) * 7 + (i32,) * 4),
@@ -113,7 +114,11 @@ ENTRIES = _entries(
     ("interp_time3d", "plain_interp.cu", "interp3d_time_kernel",
      (vp,) * 8 + (i64, f64, f64, vp, i64, i32, i32, i32)),
     ("interp_time2d", "plain_interp.cu", "interp2d_time_kernel",
-     (vp,) * 6 + (i64, f64, f64, vp, i64, i32, i32)))
+     (vp,) * 6 + (i64, f64, f64, vp, i64, i32, i32)),
+    ("diff_turb", "diff_turb.cu", "diff_turb_kernel",
+     (vp,) * 5 + (i64, i64) + (vp,) * 3 + (i32,) * 6
+     + (vp, i32, i32, f64, f64) + (vp,) * 3 + (i32,) * 3 + (f32, i32)
+     + (f32,) * 7 + (u64, i64, i64) + (vp,) * 3))
 
 #: one translation unit per kernel file
 SOURCES = tuple(dict.fromkeys(e.source for e in ENTRIES.values()))

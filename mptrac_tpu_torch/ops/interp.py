@@ -335,14 +335,20 @@ def _interp_time_cuda(name: str, met01: Met, field, ts, loc: Locator):
     ins.append(_cuda.ptr(name, "ts", ts, torch.float64,
                          ts.shape if one_time else shape, dev))
     out = torch.empty(shape, dtype=torch.float32, device=dev)
+    if out.numel():
+        _cuda.call(name, dev, *ins, 0 if one_time else 1,
+                   *time_weight_args(met01), out.data_ptr(), out.numel(),
+                   *field.shape[1:])
+    return out
+
+
+def time_weight_args(met01: Met):
+    """(t1, inv_dt): ``time_weight`` as the kernels take it, t1 and the
+    float64 reciprocal of t1 - t0 that PyTorch multiplies by in its
+    division (host floats: nothing is read from the card)."""
     t0, t1 = float(met01.time[0]), float(met01.time[1])
     dt = t1 - t0
-    # the reciprocal that PyTorch multiplies by in time_weight's division
-    inv_dt = 1.0 / dt if dt != 0.0 else math.copysign(math.inf, dt)
-    if out.numel():
-        _cuda.call(name, dev, *ins, 0 if one_time else 1, t1, inv_dt,
-                   out.data_ptr(), out.numel(), *field.shape[1:])
-    return out
+    return t1, 1.0 / dt if dt != 0.0 else math.copysign(math.inf, dt)
 
 
 # ---------------------------------------------------------------------------

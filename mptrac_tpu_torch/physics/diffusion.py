@@ -5,6 +5,15 @@ Reference: module_diff_turb (mptrac.c:4580-4730), module_diff_meso
 Counterpart of the JAX package's ``physics/diffusion.py``.  Random
 numbers come from the Squares counter RNG in the reference's per-module
 order (3*np normals + counter advance).
+
+On the card, with a float32 state, the Squares generator (``RNG_TYPE``
+0 or 1) and the surface table of a pack, ``module_diff_turb`` is one
+launch of a hand-written kernel (``csrc/diff_turb.cu``) that draws its
+normals, locates its parcel, looks up pbl and ps, computes the
+tropopause and both displacements in registers; its plain version
+``module_diff_turb_plain`` serves every other call (CPU tensors,
+float64, threefry, the exact path without a surface table).  On the
+card both give the same values bit for bit.
 """
 
 from __future__ import annotations
@@ -14,11 +23,16 @@ import torch
 from mptrac_tpu_torch.climatology import clim_tropo
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.constants import H0
-from mptrac_tpu_torch.ops import interp
-from mptrac_tpu_torch.ops.rng import module_rng3
+from mptrac_tpu_torch.ops import _cuda, interp
+from mptrac_tpu_torch.ops.rng import _M64, module_rng3
+from mptrac_tpu_torch.ops.slab_interp import SFC_FIELDS
 from mptrac_tpu_torch.ops.thermo import dx2coord, dy2coord, dz2dp
 from mptrac_tpu_torch.types import Atm, Cache, Clim, Met, grid_axes
 from mptrac_tpu_torch.utils.timers import span
+
+#: the kernel stages the horizontal axes in shared memory, of at most
+#: this many nodes in all (csrc/interp_common.cuh's SMEM_AXIS_FLOATS)
+SMEM_AXIS_FLOATS = 12288
 
 
 def pbl_weight(ctl: Ctl, p, pbl, ps):
@@ -49,7 +63,25 @@ def module_diff_turb(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
     """Langevin random-walk diffusion with well-mixed vertical drift
     correction (reference c:4580-4730).  ``sfcT`` is the surface table
     of the surface kernel (ops.slab_interp); without it pbl and ps come
-    from the exact ``interp_time_2d``."""
+    from the exact ``interp_time_2d``.  One launch of ``diff_turb``
+    where ``kernel_takes``, else ``module_diff_turb_plain``."""
+    if kernel_takes(ctl, atm, sfcT):
+        return _diff_turb_cuda(ctl, cache, clim, met01, atm, sfcT)
+    return module_diff_turb_plain(ctl, cache, clim, met01, atm, sfcT)
+
+
+def kernel_takes(ctl: Ctl, atm: Atm, sfcT) -> bool:
+    """Whether ``module_diff_turb`` launches its kernel: a float32 state
+    on the card, the Squares generator and a surface table.  The
+    kernel's other arguments are checked at the launch, which raises on
+    what it does not take."""
+    return (atm.lon.is_cuda and atm.lon.dtype == torch.float32
+            and ctl.rng_type in (0, 1) and sfcT is not None)
+
+
+def module_diff_turb_plain(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
+                           atm: Atm, sfcT=None):
+    """Plain PyTorch version of ``module_diff_turb``."""
     n = atm.npmax
     rs, ctr = module_rng3(ctl.rng_type, cache.rng_ctr, n,
                           dtype=atm.lon.dtype, device=atm.lon.device,
@@ -129,6 +161,58 @@ def module_diff_turb(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
     p_new = torch.where(do_v, ptrial, atm.p)
 
     return atm.replace(lon=lon, lat=lat, p=p_new), cache
+
+
+def _diff_turb_cuda(ctl: Ctl, cache: Cache, clim: Clim, met01: Met,
+                    atm: Atm, sfcT):
+    """``module_diff_turb`` as one launch of ``diff_turb``: the draws at
+    the counters of ``squares_normal3_f32`` (the columns of
+    ``cache.rng_part`` where it is set), the counter advanced on the
+    host as the draw advances it.  The top of the grid is read on the
+    card, from the last node of the pressure axis.  The climatology's
+    tables are float32, as every float32 run holds them."""
+    name, f32, n = "diff_turb", torch.float32, atm.npmax
+    dev = atm.lon.device
+    lons, lats, ps = grid_axes(met01)
+    nx, ny, npl = lons.numel(), lats.numel(), ps.numel()
+    first, total = (0, n) if cache.rng_part is None else cache.rng_part
+    tropo = clim.tropo
+    if (min(nx, ny, npl) < 2 or nx + ny > SMEM_AXIS_FLOATS
+            or tropo.dim() != 2 or min(tropo.shape) < 2
+            or first < 0 or first + n > total):
+        raise ValueError(
+            f"{name}: axes of {nx}, {ny}, {npl} nodes (each needs two, "
+            f"lons and lats {SMEM_AXIS_FLOATS} at most), a tropopause "
+            f"table of {tuple(tropo.shape)} (at least 2 x 2), parcels {n} "
+            f"of the draw's ({first}, {total})")
+    ntime, nlat = tropo.shape
+    ins = [_cuda.ptr(name, k, t, dt, (m,), dev) for k, t, dt, m in (
+        ("lon", atm.lon, f32, n), ("lat", atm.lat, f32, n),
+        ("p", atm.p, f32, n), ("time", atm.time, torch.float64, n),
+        ("dt", cache.dt, f32, n))]
+    axes = [_cuda.ptr(name, k, t, f32, (m,), dev) for k, t, m in (
+        ("lons", lons, nx), ("lats", lats, ny), ("ps", ps, npl))]
+    sfc = _cuda.ptr(name, "sfcT", sfcT, f32, (nx, ny, 2, len(SFC_FIELDS)),
+                    dev)
+    tables = [_cuda.ptr(name, k, t, f32, s, dev) for k, t, s in (
+        ("tropo_time", clim.tropo_time, (ntime,)),
+        ("tropo_lat", clim.tropo_lat, (nlat,)),
+        ("tropo", tropo, (ntime, nlat)))]
+    out = [torch.empty(n, dtype=f32, device=dev) for _ in range(3)]
+    if n:
+        _cuda.call(name, dev, *ins, n, atm.np, *axes, nx, ny, npl,
+                   int(met01.coord_type != 0), int(met01.reg_lon),
+                   int(met01.reg_lat), sfc, SFC_FIELDS.index("pbl"),
+                   SFC_FIELDS.index("ps"), *interp.time_weight_args(met01),
+                   *tables, ntime, nlat,
+                   int(ctl.met_coord_type != 0), ctl.met_utm_ref_lat,
+                   int(ctl.turb_pbl_scheme > 0), ctl.turb_pbl_trans,
+                   ctl.turb_dx_pbl, ctl.turb_dx_trop, ctl.turb_dx_strat,
+                   ctl.turb_dz_pbl, ctl.turb_dz_trop, ctl.turb_dz_strat,
+                   cache.rng_ctr & _M64, first, total,
+                   *(t.data_ptr() for t in out))
+    cache = cache.replace(rng_ctr=(cache.rng_ctr + 3 * total + 1) & _M64)
+    return atm.replace(lon=out[0], lat=out[1], p=out[2]), cache
 
 
 def _meso_sigma_exact(met01: Met, ix, iy, iz):

@@ -13,12 +13,20 @@ coordinates and times outside the met pair's; ``order`` "sorted" puts
 them in the order of their cells, as the sort leaves them.  The fields
 hold non-zero cloud water, cloud-free columns (NaN ``pct`` and ``pcb``),
 non-finite corners and a snapshot that is not finite.
+
+``diff_turb_case`` adds the surface table and a turbulent diffusion's
+state (``physics/diffusion.py``, its kernel ``csrc/diff_turb.cu``): a
+boundary layer, parcels near the poles, masked parcels, dt of zero and
+of both signs.
 """
 
 import numpy as np
 import torch
 
-from mptrac_tpu_torch.types import Met
+from mptrac_tpu_torch.climatology import read_clim
+from mptrac_tpu_torch.config import read_ctl
+from mptrac_tpu_torch.ops.slab_interp import SFC_FIELDS, build_sfc_table
+from mptrac_tpu_torch.types import Atm, Cache, Met
 
 #: (pressure axis, latitudes, coordinates)
 KINDS = ("down-reg-lonlat", "up-reg-lonlat", "down-irr-lonlat",
@@ -122,3 +130,66 @@ def make_parcels(met: Met, n: int, order: str = "random", seed: int = 5,
         perm = torch.argsort(key, stable=True)
         out = [a[perm].contiguous() for a in out]
     return tuple(out)
+
+
+#: the turbulent diffusion's control parameters: every layer's
+#: diffusivities non-zero and a boundary layer that blends over 0.3 of
+#: its depth; ``DIFF_CASES`` override them to reach each branch
+DIFF_ARGS = ("DIFFUSION", "1", "TURB_DX_PBL", "50", "TURB_DX_TROP", "50",
+             "TURB_DX_STRAT", "5", "TURB_DZ_PBL", "20", "TURB_DZ_TROP", "2",
+             "TURB_DZ_STRAT", "0.1", "TURB_PBL_TRANS", "0.3")
+DIFF_CASES = {
+    "base": (),
+    # kz of 1e5 m^2/s: steps of tens of km, reflected several times at
+    # both ends
+    "reflect": ("TURB_DZ_PBL", "1e5", "TURB_DZ_TROP", "1e5",
+                "TURB_DZ_STRAT", "1e5"),
+    "pbl_scheme": ("TURB_PBL_SCHEME", "1"),
+    "no_kx": ("TURB_DX_PBL", "0", "TURB_DX_TROP", "0", "TURB_DX_STRAT", "0"),
+    "no_kz": ("TURB_DZ_PBL", "0", "TURB_DZ_TROP", "0", "TURB_DZ_STRAT", "0"),
+    "utm": ("MET_COORD_TYPE", "1", "MET_UTM_REF_LAT", "47.5",
+            "MET_UTM_REF_LON", "9.0"),
+}
+
+
+def diff_turb_case(kind: str, n: int, device, case: str = "base",
+                   order: str = "random",
+                   ctr: int = (1 << 64) - 7, part=None, seed: int = 7,
+                   dtype=torch.float32):
+    """(ctl, cache, clim, met, atm, sfcT) of a ``module_diff_turb`` call
+    on the met pair of ``kind`` with the surface fields it lacks (``pbl``
+    between 0.5 and 1.1 of ``ps``, so some parcels lie in the boundary
+    layer and some surfaces are below it), ``DIFF_CASES[case]``'s control
+    parameters and the parcels of ``make_parcels``: one in ten masked
+    (``atm.np``), one in seven with dt 0, the others with dt of either
+    sign.  The climatology's tables are float32, as every float32 run
+    holds them (``astype_state``); the counter
+    ``ctr`` wraps at 2^64 inside the draw; ``part`` is ``rng_part``.  The
+    state and the met are ``dtype`` (float32, the kernel's)."""
+    rng = np.random.default_rng(seed)
+    met = make_met(kind, device, dtype)
+    f2 = dict(met.fields2d)
+    ps = f2["ps"]
+    for name in SFC_FIELDS:
+        if name not in f2:
+            f2[name] = torch.as_tensor(rng.uniform(0.0, 300.0, ps.shape),
+                                       dtype=ps.dtype, device=ps.device)
+    f2["pbl"] = ps * torch.as_tensor(rng.uniform(0.5, 1.1, ps.shape),
+                                     dtype=ps.dtype, device=ps.device)
+    f2["pbl"][1, 9, 2] = float("nan")
+    met = met.replace(fields2d=f2)
+    lon, lat, p, ts = make_parcels(met, n, order, seed=seed)
+    if met.coord_type == 0 and n >= 206:        # at and near the poles
+        lat[200:206] = torch.tensor([-90.0, 90.0, -89.9995, 89.9995,
+                                     -89.99, 89.99])
+    dt = rng.uniform(-360.0, 360.0, n)
+    dt[::7] = 0.0
+    ctl = read_ctl(None, list(DIFF_CASES[case]) + list(DIFF_ARGS))
+    clim = read_clim(ctl, device=device)
+    clim = clim.replace(**{k: getattr(clim, k).float() for k in (
+        "tropo_time", "tropo_lat", "tropo")})
+    cache = Cache.zeros(n, dtype=dtype, iso_npmax=1, device=device)
+    cache = cache.replace(dt=torch.as_tensor(dt, dtype=dtype, device=device),
+                          rng_ctr=ctr, rng_part=part)
+    atm = Atm(time=ts, p=p, lon=lon, lat=lat, q={}, np=n - n // 10)
+    return ctl, cache, clim, met, atm, build_sfc_table(met)

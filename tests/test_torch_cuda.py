@@ -18,6 +18,7 @@ from mptrac_tpu_torch.ops import (_cuda, interp, lane_interp,
 from mptrac_tpu_torch.ops.fast_interp import (build_advect_pack,
                                               build_met_pack)
 from mptrac_tpu_torch.ops.sort import module_sort
+from mptrac_tpu_torch.physics import diffusion
 from mptrac_tpu_torch.physics.timesteps import module_timesteps
 from helpers import interp_cases
 
@@ -294,6 +295,18 @@ def test_cuda_tensor_never_takes_the_plain_version(located, monkeypatch):
     assert loc.ix.is_cuda and loc.wz.dtype == torch.float32
     assert interp.interp_time_3d(met, "t", ts, loc).is_cuda
     assert interp.interp_time_2d(met, "ps", ts, loc).is_cuda
+
+    def plain_diff(*args, **kwargs):
+        raise AssertionError("the plain turbulent diffusion ran on the card")
+
+    monkeypatch.setattr(diffusion, "module_diff_turb_plain", plain_diff)
+    ctl, cache, clim, met, atm, sfcT = interp_cases.diff_turb_case(
+        "down-reg-lonlat", 1000, "cuda")
+    got, _ = diffusion.module_diff_turb(ctl, cache, clim, met, atm, sfcT)
+    assert got.p.is_cuda and got.p.dtype == torch.float32
+    with pytest.raises(ValueError, match="lat must be"):
+        diffusion.module_diff_turb(ctl, cache, clim, met,
+                                   atm.replace(lat=atm.lat.double()), sfcT)
 
 
 @pytest.fixture
@@ -979,22 +992,29 @@ def test_squares_kernel_slices_equal_whole_draw(gpu, ctr):
             assert c == (ctr + n + 1) % (1 << 64)
 
 
+@pytest.mark.parametrize("fast", ["0", "2"])
 @pytest.mark.parametrize("phys,want", [
     ("base", {"squares_normal3": 2, "squares_uniform": 0}),
     ("chem", {"squares_normal3": 2, "squares_uniform": 1})])
-def test_squares_launches_per_step(gpu, phys, want):
+def test_squares_launches_per_step(gpu, phys, want, fast):
     """A float32 step draws with one launch a draw: the turbulent and
     the mesoscale diffusion one normal3 each, convection one uniform;
-    the pair normals none."""
+    the pair normals none.  With a pack (TPU_FAST 2) the turbulent
+    diffusion is its own kernel, which draws its normals itself: one
+    normal3 and one diff_turb a step."""
     from mptrac_tpu_torch import sim
     ctl, clim, met01, atm, cache = flagship.make_setup(
-        50_000, nx=36, ny=19, nz=8, device="cuda", phys=phys)
+        50_000, nx=36, ny=19, nz=8, device="cuda", phys=phys,
+        extra_args=("TPU_FAST", fast, "SORT_DT", "1800"))
     s = sim.Simulation(ctl, atm, clim, met=sim.FixedMet(met01), cache=cache)
     _cuda.reset_launch_counts()
     s.run(write_output=False, ts=[180.0 * (i + 1) for i in range(3)])
     torch.cuda.synchronize()
+    kernel = int(fast != "0")
+    want = {**want, "squares_normal3": want["squares_normal3"] - kernel}
     assert {k: _cuda.launch_counts[k] for k in SQUARES_PLAIN} == {
         "squares_pairs": 0, **{k: 3 * v for k, v in want.items()}}
+    assert _cuda.launch_counts["diff_turb"] == 3 * kernel
 
 
 # ------------------------------------------------- plain interpolation
@@ -1078,16 +1098,17 @@ def test_plain_interp_kernels_on_the_second_card(gpu):
 
 
 @pytest.mark.parametrize("phys,want", [
-    ("base", {"interp_locate3d": 1, "interp_time3d": 0,
-              "interp_time2d": 0}),
-    ("chem", {"interp_locate3d": 8, "interp_time3d": 11,
-              "interp_time2d": 8})])
+    ("base", {"interp_locate3d": 0, "interp_time3d": 0,
+              "interp_time2d": 0, "diff_turb": 1}),
+    ("chem", {"interp_locate3d": 7, "interp_time3d": 11,
+              "interp_time2d": 8, "diff_turb": 1})])
 def test_interp_launches_per_step(gpu, phys, want):
     """A float32 step on the fused path interpolates with one launch a
-    call: the turbulent diffusion's locate in the base step; in the
+    call: none in the base step, whose turbulent diffusion locates its
+    parcels inside its own kernel (one diff_turb a step); in the
     chemistry step convection's 3 / 2 / 4, OH's 1 / 1 / 0, H2O2's
-    1 / 3 / 0, wet deposition's 1 / 5 / 3, dry deposition's 1 / 0 / 1
-    and the turbulent diffusion's 1 / 0 / 0 (three steps, no sort)."""
+    1 / 3 / 0, wet deposition's 1 / 5 / 3 and dry deposition's 1 / 0 / 1
+    (three steps, no sort)."""
     from mptrac_tpu_torch import sim
     ctl, clim, met01, atm, cache = flagship.make_setup(
         50_000, nx=36, ny=19, nz=8, device="cuda", phys=phys,
@@ -1099,3 +1120,88 @@ def test_interp_launches_per_step(gpu, phys, want):
     assert _cuda.launch_counts["permute_count"] == 0          # no sort
     assert {k: _cuda.launch_counts[k] for k in want} == {
         k: 3 * v for k, v in want.items()}
+
+
+# ------------------------------------------------- turbulent diffusion
+
+def _assert_diff_turb_exact(ctl, cache, clim, met, atm, sfcT):
+    """``module_diff_turb`` on the card against ``module_diff_turb_plain``
+    on the same state, bit for bit in lon, lat, p and the counter: one
+    launch of ``diff_turb`` and nothing else (no draw, no locate, no
+    surface lookup).  Returns the kernel's state."""
+    watched = ("diff_turb", "squares_normal3", "interp_locate3d",
+               "sfc_interp")
+    before = {k: _cuda.launch_counts[k] for k in watched}
+    got, gc = diffusion.module_diff_turb(ctl, cache, clim, met, atm, sfcT)
+    torch.cuda.synchronize(atm.lon.device)
+    assert {k: _cuda.launch_counts[k] - before[k] for k in watched} == {
+        "diff_turb": 1, "squares_normal3": 0, "interp_locate3d": 0,
+        "sfc_interp": 0}
+    exp, ec = diffusion.module_diff_turb_plain(ctl, cache, clim, met, atm,
+                                               sfcT)
+    assert gc.rng_ctr == ec.rng_ctr
+    for k in ("lon", "lat", "p"):
+        g, e = getattr(got, k), getattr(exp, k)
+        bad = torch.nonzero(interp_cases.bits(g) != interp_cases.bits(e))
+        first = [(int(i), float(getattr(atm, k)[i]), float(g[i]),
+                  float(e[i])) for i in bad[:5, 0]]
+        assert g.dtype == e.dtype and bad.numel() == 0, (
+            k, bad.numel(), "first (index, before, kernel, plain)", first)
+    return got
+
+
+@pytest.mark.parametrize("case", sorted(interp_cases.DIFF_CASES))
+@pytest.mark.parametrize("kind", interp_cases.KINDS)
+def test_diff_turb_kernel_bit_exact(gpu, kind, case):
+    """The turbulent diffusion's kernel equals the plain body bit for
+    bit on every grid of interp_cases (pressure up and down, lat/lon and
+    Cartesian) and in every branch: masked parcels and dt 0, kx or kz of
+    0, parcels at the poles, steps reflected several times at ps and at
+    the top (kz of 1e5), the PBL scheme, MET_COORD_TYPE 1, NaN and inf
+    coordinates; n is no multiple of a block, and the counter wraps at
+    2^64 inside the draw."""
+    args = interp_cases.diff_turb_case(kind, 200_003, "cuda", case)
+    atm = args[4]
+    got = _assert_diff_turb_exact(*args)
+    rest = slice(atm.np, None)                  # masked: unchanged
+    for k in ("lon", "lat", "p"):
+        assert torch.equal(interp_cases.bits(getattr(got, k)[rest]),
+                           interp_cases.bits(getattr(atm, k)[rest])), k
+    finite = torch.isfinite(atm.lon) & torch.isfinite(atm.lat)
+    moved_h = bool(((got.lon != atm.lon) & finite).any())
+    moved_v = bool(((got.p != atm.p) & torch.isfinite(atm.p)).any())
+    assert moved_h == (case != "no_kx") and moved_v == (case != "no_kz")
+
+
+@pytest.mark.parametrize("order", ["random", "sorted"])
+def test_diff_turb_kernel_bit_exact_in_either_order(gpu, order):
+    """With parcels in random order or in the order of their cells, the
+    kernel equals the plain body."""
+    _assert_diff_turb_exact(*interp_cases.diff_turb_case(
+        "down-irr-lonlat", 200_003, "cuda", "base", order=order,
+        ctr=12345))
+
+
+def test_diff_turb_kernel_parts_equal_the_whole(gpu):
+    """A shard's call (``rng_part`` = (first, total)) draws the columns
+    of the whole draw: each part equals the plain body's part and the
+    whole call's parcels first .. first+m-1 bit for bit, and advances
+    the counter as the whole draw does."""
+    from mptrac_tpu_torch.types import Atm
+    n = 200_003
+    ctl, cache, clim, met, atm, sfcT = interp_cases.diff_turb_case(
+        "down-reg-lonlat", n, "cuda")
+    atm = atm.replace(np=n)
+    whole = _assert_diff_turb_exact(ctl, cache, clim, met, atm, sfcT)
+    _, wc = diffusion.module_diff_turb(ctl, cache, clim, met, atm, sfcT)
+    for first, m in ((0, 5), (7, 100_000), (100_007, n - 100_007)):
+        sl = slice(first, first + m)
+        a = Atm(time=atm.time[sl], p=atm.p[sl], lon=atm.lon[sl],
+                lat=atm.lat[sl], q={}, np=m)
+        c = cache.replace(dt=cache.dt[sl], rng_part=(first, n))
+        got = _assert_diff_turb_exact(ctl, c, clim, met, a, sfcT)
+        assert diffusion.module_diff_turb(ctl, c, clim, met, a,
+                                          sfcT)[1].rng_ctr == wc.rng_ctr
+        for k in ("lon", "lat", "p"):
+            assert torch.equal(interp_cases.bits(getattr(got, k)),
+                               interp_cases.bits(getattr(whole, k)[sl])), k

@@ -26,6 +26,7 @@ from helpers import interp_cases
 from mptrac_tpu_torch.ops import (_cuda, interp, lane_interp, pallas_interp,
                                   rk_fused, rng, slab_interp)
 from mptrac_tpu_torch.perf import probe
+from mptrac_tpu_torch.physics import diffusion
 from mptrac_tpu_torch.utils import timers
 
 LAUNCHING = sorted(k for k, e in _cuda.ENTRIES.items() if e.kernels)
@@ -167,6 +168,19 @@ def _interp_time(name):
     interp._interp_time_cuda(name, met, field, ts, loc)
 
 
+@functools.lru_cache(maxsize=1)
+def _diff_turb_case():
+    return interp_cases.diff_turb_case("down-reg-lonlat", 500, "cpu")
+
+
+def _diff_turb(**kw):
+    """The diffusion's kernel branch on its CPU case, the state's members
+    ``kw`` replaced."""
+    ctl, cache, clim, met, atm, sfcT = _diff_turb_case()
+    return diffusion._diff_turb_cuda(ctl, cache, clim, met,
+                                     atm.replace(**kw), sfcT)
+
+
 def _permute():
     cols, perm = [_f32(N) for _ in range(3)], torch.randperm(N)
     col64 = torch.rand(N, dtype=torch.float64)
@@ -207,6 +221,7 @@ DRIVERS = {
         _interp_case()[0], *_axes(_interp_case()[0]), *_interp_case()[1:4]),
     "interp_time3d": lambda: _interp_time("interp_time3d"),
     "interp_time2d": lambda: _interp_time("interp_time2d"),
+    "diff_turb": _diff_turb,
 }
 
 
@@ -272,6 +287,10 @@ def _refusals():
             _f32(NX * NY, 8), _i32(), _f32(4, N), NY, 1), "weights"),
         "probe int64 idx": (lambda: probe._small_cuda(
             _f32(8, 128), _i32(high=73).long()), "idx"),
+        "diff_turb float32 time": (lambda: _diff_turb(
+            time=_diff_turb_case()[4].time.float()), "time"),
+        "diff_turb strided lat": (lambda: _diff_turb(
+            lat=_diff_turb_case()[4].lat.repeat(2)[::2]), "lat"),
     }
 
 
