@@ -3929,7 +3929,7 @@ def dd_memory_step(torch, ddm, step, tiles, state, t, dt_mod, exch_cap):
                                   r["peak"] - r["held"])
     return dict(
         held_at_step_start=held0, state_bytes=state_bytes,
-        send_buffer_bytes=ndev * ndev * exch_cap * (4 * k32 + 8 * k64 + 4),
+        send_buffer_bytes=ndev * ndev * exch_cap * (4 * k32 + 8 * k64),
         peak=max(r["peak"] for r in stages), by_stage=by), a, c, t
 
 

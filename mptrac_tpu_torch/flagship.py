@@ -112,11 +112,11 @@ def write_case(dirname: str, n_parcels: int, grid: Sequence[int],
     parameters, binary particle output at ``t_stop`` only, and
     ``dirlist``.  ``extra_ctl`` are further ``KEY VALUE`` control
     parameters.  ``quantities`` are the parcels' quantities, from
-    ``t`` (0), ``m`` (1), ``stat`` (0) and ``ens`` (the parcel's index
-    mod 32).  ``wind_q`` and ``wind_o3`` are the met's uniform H2O and O3
-    volume mixing ratios (the reference wind tool's ``WIND_Q`` and
-    ``WIND_O3``).  Everything is made on the host.  Returns the
-    dirlist's path."""
+    ``t`` (0), ``m`` (1), ``stat`` (0), ``ens`` (the parcel's index mod
+    32) and ``idx`` (the parcel's index).  ``wind_q`` and ``wind_o3``
+    are the met's uniform H2O and O3 volume mixing ratios (the
+    reference wind tool's ``WIND_Q`` and ``WIND_O3``).  Everything is
+    made on the host.  Returns the dirlist's path."""
     import os
 
     from mptrac_tpu_torch.io import atm_io
@@ -156,7 +156,8 @@ def write_case(dirname: str, n_parcels: int, grid: Sequence[int],
     made = {"t": lambda: torch.zeros(n_parcels, dtype=f64),
             "m": lambda: torch.ones(n_parcels, dtype=f64),
             "stat": lambda: torch.zeros(n_parcels, dtype=f64),
-            "ens": lambda: (torch.arange(n_parcels) % 32).to(f64)}
+            "ens": lambda: (torch.arange(n_parcels) % 32).to(f64),
+            "idx": lambda: torch.arange(n_parcels, dtype=f64)}
     atm = Atm(time=torch.full((n_parcels,), float(t_start), dtype=f64), p=p,
               lon=lon, lat=lat, q={name: made[name]() for name in quantities},
               np=n_parcels)

@@ -24,7 +24,7 @@ import torch
 
 from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.constants import H0, P0
-from mptrac_tpu_torch.types import Atm, resolve_device
+from mptrac_tpu_torch.types import Atm, quantity_dtype, resolve_device
 
 
 def read_atm(filename: str, ctl: Ctl, npmax: Optional[int] = None,
@@ -60,10 +60,12 @@ def read_atm(filename: str, ctl: Ctl, npmax: Optional[int] = None,
             dev).to(dt)
 
     time, p, lon, lat = cols
-    # (the time keeps float64 in every compute mode: jsec values need it)
+    # (the time keeps float64 in every compute mode: jsec values need it;
+    # so does a parcel index)
     return Atm(time=col(time, torch.float64), p=col(p), lon=col(lon),
                lat=col(lat),
-               q={name: col(q.get(name)) for name in ctl.qnt_name}, np=n)
+               q={name: col(q.get(name), quantity_dtype(name, dtype))
+                  for name in ctl.qnt_name}, np=n)
 
 
 def _read_atm_nc(filename: str, ctl: Ctl):

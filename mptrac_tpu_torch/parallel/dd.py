@@ -33,7 +33,22 @@ movers, received) go through the permute kernel (K3,
 ``ops.slab_interp.permute_cols``) on the card, on its gather path: the
 float32 columns and the float64 time in one launch, further float64
 columns one launch each.  Each gathers only the parcels it moves, in
-slot order, straight into their new order.
+slot order, straight into their new order.  The counts that size them
+(the lost, the stayers, the movers to each destination) reach the host
+in one copy a subdomain, and its migration is queued only after the
+next subdomain's physics: the card computes while the host waits for
+the copy, and nothing else in the step waits for the card.
+
+Each sender's counts to every destination are exchanged with the
+buffers (on the host in the local group), and a receiver reads that
+many parcels from the front of each sender's buffer.
+
+While tracing (``utils.timers``) a step is the span ``dd.step``, over a
+``dd.physics`` and a ``dd.migrate`` (owner, movers, send buffers,
+stayers) a subdomain, ``dd.exchange``, and a ``dd.receive`` a subdomain
+(the received parcels appended, the tail filled).  ``make_tiles`` is
+the span ``dd.tiles``.  Every step counts ``dd_selected``, the parcels
+its selections gathered.
 
 Unlike the JAX package, the state keeps the caller's dtypes: float64
 time and float32 columns in the float32 mode (the JAX step and
@@ -44,6 +59,7 @@ survives that promotion exactly, so the values are the same.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,6 +69,7 @@ from mptrac_tpu_torch.config import Ctl
 from mptrac_tpu_torch.ops.slab_interp import PERMUTE_MAX_COLS, permute_cols
 from mptrac_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mptrac_tpu_torch.types import Atm, Cache, Met, grid_axes
+from mptrac_tpu_torch.utils.timers import count, span
 
 _M64 = (1 << 64) - 1
 #: per-subdomain offset of the Squares counter: 2^40 draws each before
@@ -196,6 +213,7 @@ def read_met_tile(filename: str, ctl: Ctl, dd: DDGrid, rank: int,
     return read_met(filename, ctl, clim=clim, device=device, sel=sel)
 
 
+@span("dd.tiles")
 def make_tiles(dd: DDGrid, met: Met) -> Met:
     """A global snapshot (or stacked pair) split into per-subdomain tiles
     with halos: every tensor gains a leading ``[ndev]`` axis, on the
@@ -251,7 +269,8 @@ def stack_tiles(tiles: Sequence[Met]) -> Met:
         reg_lon=False, reg_lat=False, lon_periodic=False)
 
 
-def _tile(tiles: Met, i: int) -> Met:
+def tile(tiles: Met, i: int) -> Met:
+    """Tile ``i`` of stacked tiles (views, no copy)."""
     return tiles.replace(
         lon=tiles.lon[i], lat=tiles.lat[i], p=tiles.p[i],
         hybrid=tiles.hybrid[i],
@@ -260,12 +279,15 @@ def _tile(tiles: Met, i: int) -> Met:
 
 
 def scatter_parcels(dd: DDGrid, atm: Atm, cap: int, lat_axis,
-                    device=None) -> Tuple[Atm, Cache]:
+                    device=None, cache: Optional[Cache] = None
+                    ) -> Tuple[Atm, Cache]:
     """A whole Atm distributed onto ``[ndev * cap]`` subdomain slots by
     owner (the reference's initial dd_sort, c:2384), on ``device`` (the
     Atm's by default).  The columns keep their dtypes; free slots hold 0
     and p = 1000.  The cache's per-subdomain counters and served
-    fractions are host lists."""
+    fractions are host lists; with ``cache`` (the whole state's) its
+    wind memory goes along with the parcels and every subdomain starts
+    at its random counter, else both start at 0."""
     dev = atm.time.device if device is None else torch.device(device)
     n = int(atm.np)
     owner = dd.owner_of(atm.lon[:n], atm.lat[:n], lat_axis).to(torch.int64)
@@ -289,10 +311,43 @@ def scatter_parcels(dd: DDGrid, atm: Atm, cap: int, lat_axis,
               lon=place(atm.lon), lat=place(atm.lat),
               q={k: place(v) for k, v in atm.q.items()},
               np=counts.astype(np.int64))
-    cache = Cache.zeros(N, dtype=atm.lon.dtype, device=dev)
-    cache = cache.replace(rng_ctr=[0] * dd.ndev,
-                          served_min=[1.0] * dd.ndev)
-    return out, cache
+    ctr = 0
+    out_cache = Cache.zeros(N, dtype=atm.lon.dtype, device=dev)
+    if cache is not None:
+        out_cache.uvwp.copy_(torch.stack([place(r) for r in cache.uvwp]))
+        ctr = int(cache.rng_ctr)
+    out_cache = out_cache.replace(rng_ctr=[ctr] * dd.ndev,
+                                  served_min=[1.0] * dd.ndev)
+    return out, out_cache
+
+
+def block(atm: Atm, cache: Cache, cap: int, i: int,
+          n: Optional[int] = None) -> Tuple[Atm, Cache]:
+    """Views of subdomain ``i``'s slots of a decomposed state: its whole
+    block, or its first ``n`` slots (its live parcels where ``n`` is its
+    count); ``np`` is its count."""
+    sl = slice(i * cap, i * cap + (cap if n is None else n))
+    per_parcel = cache.iso_var.shape == cache.dt.shape
+    return (Atm(time=atm.time[sl], p=atm.p[sl], lon=atm.lon[sl],
+                lat=atm.lat[sl], q={k: v[sl] for k, v in atm.q.items()},
+                np=int(atm.np[i])),
+            cache.replace(uvwp=cache.uvwp[:, sl], dt=cache.dt[sl],
+                          iso_var=(cache.iso_var[sl] if per_parcel
+                                   else cache.iso_var)))
+
+
+def write_block(views: Tuple[Atm, Cache], atm: Atm, cache: Cache) -> None:
+    """Copy the state ``atm`` / ``cache`` of a block into its ``views``
+    (``block``): every column that migrates, ``dt`` and a per-parcel
+    ``iso_var``."""
+    v_atm, v_cache = views
+    qnames = tuple(v_atm.q)
+    for (_, dst), (_, src) in zip(_columns(v_atm, v_cache, qnames),
+                                  _columns(atm, cache, qnames)):
+        dst.copy_(src)
+    v_cache.dt.copy_(cache.dt)
+    if v_cache.iso_var.shape == v_cache.dt.shape:
+        v_cache.iso_var.copy_(cache.iso_var)
 
 
 def subdomain_block(atm: Atm, cache: Cache, cap: int, ids: Sequence[int]
@@ -341,7 +396,7 @@ class _LocalExchange:
         self.subdomains = range(ndev)
 
     def buffer(self, k, exch_cap, dtype):
-        return torch.zeros((k, self.ndev, self.ndev, exch_cap), dtype=dtype,
+        return torch.empty((k, self.ndev, self.ndev, exch_cap), dtype=dtype,
                            device=self.device)
 
     def send_view(self, buf, i):
@@ -353,6 +408,11 @@ class _LocalExchange:
     def recv_cols(self, recv, i):
         k, _, _, e = recv.shape
         return recv[:, i].reshape(k, self.ndev * e)
+
+    def counts(self, sent):
+        """``sent``: every sender's counts to each destination (host);
+        returns, a subdomain, what each sender put in its buffer to it."""
+        return [[int(c[i]) for c in sent] for i in self.subdomains]
 
 
 class _ProcessExchange:
@@ -369,7 +429,7 @@ class _ProcessExchange:
         self.subdomains = [rank]
 
     def buffer(self, k, exch_cap, dtype):
-        return torch.zeros((self.ndev, k, exch_cap), dtype=dtype,
+        return torch.empty((self.ndev, k, exch_cap), dtype=dtype,
                            device=self.device)
 
     def send_view(self, buf, i):
@@ -384,6 +444,13 @@ class _ProcessExchange:
     def recv_cols(self, recv, i):
         n, k, e = recv.shape
         return recv.transpose(0, 1).reshape(k, n * e)
+
+    def counts(self, sent):
+        """``sent``: this rank's counts to each destination (host);
+        returns what each rank put in its buffer to this one."""
+        mine = torch.as_tensor(np.asarray(sent[0], np.int64),
+                               device=self.device)
+        return [self.exchange(mine).tolist()]
 
 
 def local_group(ndev: int, device="cuda") -> Mesh:
@@ -418,6 +485,42 @@ def _columns(atm: Atm, cache: Cache, qnames):
             + [(("uvwp", j), cache.uvwp[j]) for j in range(3)])
 
 
+def _on_host(t: torch.Tensor):
+    """Start copying the small tensor ``t`` to the host; returns a
+    function that gives it as a list, waiting only for that copy (on
+    the card the copy and an event are queued behind the work before
+    it, so that the host can queue more work first)."""
+    if not t.is_cuda:
+        return t.tolist
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+
+    def get():
+        done.synchronize()
+        return host.tolist()
+    return get
+
+
+def _compact(mask: torch.Tensor, n: int) -> torch.Tensor:
+    """The indices of the ``n`` true entries of the 1-D ``mask``,
+    ascending (int64), without waiting for the device (``torch.nonzero``
+    reads its count back): ``n`` is known on the host, and each entry's
+    rank among the true ones, or among the false ones after them, places
+    its index in a stable partition whose first ``n`` entries are the
+    true ones."""
+    idx = torch.arange(mask.shape[0], device=mask.device)
+    rank = torch.cumsum(mask, 0).sub_(1)   # a true entry's among the true
+    # a false entry's: n + the false ones before it (idx - rank - 1)
+    after = idx.sub(rank).add_(n - 1)
+    place = torch.where(mask, rank, after)
+    del rank, after
+    out = torch.empty_like(idx)
+    out[place] = idx
+    return out[:n]
+
+
 def _select(cols32: List[torch.Tensor], cols64: List[torch.Tensor],
             idx: torch.Tensor):
     """The entries ``idx`` (ascending within runs) of every column: K3's
@@ -448,15 +551,16 @@ def make_dd_step(ctl: Ctl, clim, dd: DDGrid, group: Mesh, cap: int,
     ``atm.np`` their live counts and ``cache.rng_ctr`` / ``served_min``
     their host values (``scatter_parcels``).
 
-    Returns ``step(tiles, atm, cache, t)`` -> ``(atm, cache, overflow,
-    lost)``: ``tiles`` the held subdomains' met tiles stacked
-    (``make_tiles``, ``stack_tiles``), ``t`` the model time, overflow and
-    lost numpy counts per held subdomain.  With ``exchange=False`` the
-    parcels stay where the physics left them and the third output counts
-    those that would migrate.  Each subdomain runs its physics and sends
-    its movers before the next one starts, so that beside the state
-    (old and new) only the send buffers and one subdomain's temporaries
-    are held."""
+    Returns ``step(tiles, atm, cache, t, flags=None)`` -> ``(atm, cache,
+    overflow, lost)``: ``tiles`` the held subdomains' met tiles stacked
+    (``make_tiles``, ``stack_tiles``), ``t`` the model time, ``flags``
+    the run loop's ``pipeline.StepFlags`` (default: every module due),
+    overflow and lost numpy counts per held subdomain.  With
+    ``exchange=False`` the parcels stay where the physics left them and
+    the third output counts those that would migrate.  A subdomain's
+    movers are sent once the next subdomain's physics is queued, so that
+    beside the state (old and new) only the send buffers and two
+    subdomains' temporaries are held."""
     from mptrac_tpu_torch.physics import pipeline
 
     ex = _exchange_for(group, dd.ndev)
@@ -464,8 +568,12 @@ def make_dd_step(ctl: Ctl, clim, dd: DDGrid, group: Mesh, cap: int,
     qnames = tuple(ctl.qnt_name)
     lax = _LatAxis(lat_axis, ex.device)
 
-    def step(tiles: Met, atm: Atm, cache: Cache, t: float):
-        t = float(t)
+    def step(tiles: Met, atm: Atm, cache: Cache, t: float, flags=None):
+        with span("dd.step"):
+            return _step(tiles, atm, cache, float(t),
+                         pipeline.StepFlags() if flags is None else flags)
+
+    def _step(tiles: Met, atm: Atm, cache: Cache, t: float, flags):
         nloc = len(ex.subdomains)
         if atm.npmax != nloc * cap:
             raise ValueError(f"DD step: {atm.npmax} slots, expected "
@@ -489,22 +597,104 @@ def make_dd_step(ctl: Ctl, clim, dd: DDGrid, group: Mesh, cap: int,
         dt = torch.empty_like(cache.dt)
         iso_var = torch.empty_like(cache.iso_var) if per_parcel else None
         ctrs, served, counts, third, lost, kept = [], [], [], [], [], []
+        sent = []           # movers in the send buffers, a destination
+        selected = 0
         bufs = ((ex.buffer(len(names32), exch_cap, torch.float32),
-                 ex.buffer(len(names64), exch_cap, torch.float64),
-                 ex.buffer(1, exch_cap, torch.int32)) if exchange else None)
+                 ex.buffer(len(names64), exch_cap, torch.float64))
+                if exchange else None)
+
+        def owners(i, my, a_i, c_i):
+            """The migration's first part (reference module_dd,
+            c:4168): each parcel's owner, who stays, who moves, and the
+            counts that the second part needs on the host (the lost,
+            the stayers, the movers to each destination: a sum a
+            destination, where atomic adds of every slot into a few
+            counters would queue on them), on their way there."""
+            with span("dd.migrate"):
+                return _owners(i, my, a_i, c_i)
+
+        def _owners(i, my, a_i, c_i):
+            live = a_i.np       # the stayers and movers lie here
+            dest = _owner(dd, a_i.lon, a_i.lat, lax)
+            valid = a_i.mask
+            lat64 = a_i.lat.to(torch.float64)
+            gone = valid & ((lat64 < lax.lo) | (lat64 > lax.hi))
+            del lat64
+            valid = valid & ~gone
+            stay = valid[:live] & (dest[:live] == my)
+            move = valid[:live] & (dest[:live] != my)
+            del valid
+            key = torch.where(move, dest[:live], -1)
+            cnt = torch.stack([(key == d).sum() for d in range(ndev)])
+            del key
+            return SimpleNamespace(
+                i=i, my=my, live=live, dest=dest[:live], stay=stay,
+                move=move, cnt=cnt, cols=dict(_columns(a_i, c_i, qnames)),
+                counts=_on_host(torch.cat([gone.sum()[None],
+                                           stay.sum()[None], cnt])))
+
+        def migrate(st):
+            """The migration's second part, once the counts are on the
+            host: the movers by destination in slot order, each
+            destination's first exch_cap into the send buffers and the
+            rest overflow, then the stayers compacted to the front of
+            the subdomain's block."""
+            with span("dd.migrate"):
+                return _migrate(st)
+
+        def _migrate(st):
+            """Returns the parcels its selections gathered."""
+            host = st.counts()
+            lost.append(host[0])
+            n_stay, cnt_h = host[1], np.asarray(host[2:])
+            n_move = int(cnt_h.sum())
+            sl = slice(st.i * cap, (st.i + 1) * cap)
+            if not exchange:
+                for name, v in st.cols.items():
+                    out[name][sl] = v
+                counts.append(st.live)
+                third.append(n_move)
+                return 0
+            c32 = [st.cols[n] for n in names32]
+            c64 = [st.cols[n] for n in names64]
+            sent.append(np.minimum(cnt_h, exch_cap))
+            n_sent = int(sent[-1].sum())
+            third.append(n_move - n_sent)
+            mv = _compact(st.move, n_move)
+            d_mv = st.dest[mv].to(torch.int64)
+            by_dest = torch.sort(d_mv, stable=True).indices
+            d_mv = d_mv[by_dest]
+            rank = (torch.arange(n_move, device=ex.device)
+                    - (torch.cumsum(st.cnt, 0) - st.cnt)[d_mv])
+            ok = _compact(rank < exch_cap, n_sent)
+            d_ok, slot = d_mv[ok], rank[ok]
+            mv32, mv64 = _select(c32, c64, mv[by_dest[ok]])
+            for buf, g in ((bufs[0], mv32), (bufs[1], mv64)):
+                if len(g):
+                    g = g if torch.is_tensor(g) else torch.stack(g)
+                    ex.send_view(buf, st.i)[d_ok, :, slot] = g.T
+            del mv, d_mv, by_dest, rank, ok, d_ok, slot, mv32, mv64
+            kp32, kp64 = _select(c32, c64, _compact(st.stay, n_stay))
+            for names, kp in ((names32, kp32), (names64, kp64)):
+                for j, name in enumerate(names):
+                    out[name][sl][:n_stay] = kp[j]
+            kept.append(n_stay)
+            return n_sent + n_stay
+
+        # each subdomain's migration is issued once the next one's
+        # physics is queued: the card computes while the host waits for
+        # the counts
+        pending = None
         for i, my in enumerate(ex.subdomains):
             sl = slice(i * cap, (i + 1) * cap)
-            a_i = Atm(time=atm.time[sl], p=atm.p[sl], lon=atm.lon[sl],
-                      lat=atm.lat[sl], q={k: v[sl] for k, v in atm.q.items()},
-                      np=int(atm.np[i]))
+            a_i, c_i = block(atm, cache, cap, i)
             # a stream of its own for every subdomain, 2^40 draws apart
-            c_i = cache.replace(
-                uvwp=cache.uvwp[:, sl], dt=cache.dt[sl],
-                iso_var=cache.iso_var[sl] if per_parcel else cache.iso_var,
+            c_i = c_i.replace(
                 rng_ctr=(cache.rng_ctr[i] + my * RNG_STRIDE) & _M64,
                 served_min=cache.served_min[i], rng_part=None)
-            a_i, c_i = pipeline.run_timestep(ctl, clim, _tile(tiles, i),
-                                             a_i, c_i, t)
+            with span("dd.physics"):
+                a_i, c_i = pipeline.run_timestep(ctl, clim, tile(tiles, i),
+                                                 a_i, c_i, t, flags)
             ctrs.append((c_i.rng_ctr - my * RNG_STRIDE) & _M64)
             served.append(c_i.served_min)
             dt[sl] = c_i.dt
@@ -514,77 +704,24 @@ def make_dd_step(ctl: Ctl, clim, dd: DDGrid, group: Mesh, cap: int,
                           iso_n=c_i.iso_n)
             if not per_parcel:
                 tables["iso_var"] = c_i.iso_var
-
-            # --- migration (reference module_dd, c:4168)
-            dest = _owner(dd, a_i.lon, a_i.lat, lax)
-            valid = a_i.mask
-            lat64 = a_i.lat.to(torch.float64)
-            gone = valid & ((lat64 < lax.lo) | (lat64 > lax.hi))
-            del lat64
-            valid = valid & ~gone
-            stay = valid & (dest == my)
-            move = valid & (dest != my)
-            del valid
-            lost.append(int(gone.sum()))
-            cols = dict(_columns(a_i, c_i, qnames))
-            del a_i, c_i, gone
-            if not exchange:
-                for name, v in cols.items():
-                    out[name][sl] = v
-                counts.append(int(atm.np[i]))
-                third.append(int(move.sum()))
-                continue
-            c32 = [cols[n] for n in names32]
-            c64 = [cols[n] for n in names64]
-            # movers, by destination in slot order: each destination's
-            # first exch_cap into the send buffers, the rest overflow
-            mv = torch.nonzero(move).flatten()
-            d_mv = dest[mv].to(torch.int64)
-            del dest, move
-            cnt = torch.bincount(d_mv, minlength=ndev)
-            by_dest = torch.sort(d_mv, stable=True).indices
-            d_mv = d_mv[by_dest]
-            rank = (torch.arange(d_mv.shape[0], device=ex.device)
-                    - (torch.cumsum(cnt, 0) - cnt)[d_mv])
-            ok = rank < exch_cap
-            third.append(int(d_mv.shape[0] - ok.sum()))
-            d_ok, slot = d_mv[ok], rank[ok]
-            mv32, mv64 = _select(c32, c64, mv[by_dest[ok]])
-            for buf, g in ((bufs[0], mv32), (bufs[1], mv64)):
-                if len(g):
-                    g = g if torch.is_tensor(g) else torch.stack(g)
-                    ex.send_view(buf, i)[d_ok, :, slot] = g.T
-            ex.send_view(bufs[2], i)[d_ok, 0, slot] = 1
-            del mv, d_mv, by_dest, rank, ok, d_ok, slot, mv32, mv64, g
-            # stayers, compacted to the front of the subdomain's block
-            kp32, kp64 = _select(c32, c64, torch.nonzero(stay).flatten())
-            n_keep = kp32.shape[1]
-            del c32, c64, cols, stay
-            for names, kp in ((names32, kp32), (names64, kp64)):
-                for j, name in enumerate(names):
-                    out[name][sl][:n_keep] = kp[j]
-            del kp32, kp64
-            kept.append(n_keep)
+            new = owners(i, my, a_i, c_i)
+            del a_i, c_i
+            if pending is not None:
+                selected += migrate(pending)
+            pending = new
+        selected += migrate(pending)
+        del pending, new
 
         if exchange:
-            recv = [ex.exchange(b) for b in bufs]
+            with span("dd.exchange"):
+                recv = [ex.exchange(b) for b in bufs]
+                got = ex.counts(sent)
             del bufs
             for i, n_keep in enumerate(kept):
-                sl = slice(i * cap, (i + 1) * cap)
-                got = torch.nonzero(ex.recv_cols(recv[2], i)[0]).flatten()
-                n_new = n_keep + got.shape[0]
-                if n_new > cap:
-                    raise ValueError(
-                        f"DD subdomain {ex.subdomains[i]}: {n_new} parcels "
-                        f"after the exchange exceed its capacity {cap}")
-                r32, r64 = _select(list(ex.recv_cols(recv[0], i)),
-                                   list(ex.recv_cols(recv[1], i)), got)
-                for names, rc in ((names32, r32), (names64, r64)):
-                    for j, name in enumerate(names):
-                        col = out[name][sl]
-                        col[n_keep:n_new] = rc[j]
-                        col[n_new:] = 1000.0 if name == "p" else 0.0
-                del r32, r64
+                with span("dd.receive"):
+                    n_new = receive(recv, out, names32, names64, i, n_keep,
+                                    got[i])
+                selected += n_new - n_keep
                 counts.append(n_new)
             del recv
         atm2 = Atm(time=out["time"], p=out["p"], lon=out["lon"],
@@ -596,6 +733,30 @@ def make_dd_step(ctl: Ctl, clim, dd: DDGrid, group: Mesh, cap: int,
             tables["iso_var"] = iso_var
         cache2 = cache.replace(uvwp=uvwp, dt=dt, rng_ctr=ctrs,
                                served_min=served, **tables)
+        count("dd_selected", selected)
         return atm2, cache2, np.asarray(third), np.asarray(lost)
+
+    def receive(recv, out, names32, names64, i, n_keep, got):
+        """Subdomain ``i``'s received parcels appended after its
+        ``n_keep`` stayers and the rest of its block filled; returns its
+        new count.  ``got``: how many each sender put in its buffer to
+        this subdomain (they fill its first slots)."""
+        sl = slice(i * cap, (i + 1) * cap)
+        got = torch.cat([torch.arange(s * exch_cap, s * exch_cap + k,
+                                      device=ex.device)
+                         for s, k in enumerate(got)])
+        n_new = n_keep + got.shape[0]
+        if n_new > cap:
+            raise ValueError(
+                f"DD subdomain {ex.subdomains[i]}: {n_new} parcels "
+                f"after the exchange exceed its capacity {cap}")
+        r32, r64 = _select(list(ex.recv_cols(recv[0], i)),
+                           list(ex.recv_cols(recv[1], i)), got)
+        for names, rc in ((names32, r32), (names64, r64)):
+            for j, name in enumerate(names):
+                col = out[name][sl]
+                col[n_keep:n_new] = rc[j]
+                col[n_new:] = 1000.0 if name == "p" else 0.0
+        return n_new
 
     return step

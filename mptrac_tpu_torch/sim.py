@@ -26,11 +26,26 @@ first-step initialisation, the sort and the step on its own device
 (``parallel.mesh.ShardedStep``), as the unsharded run does on its
 parcels; output and checkpoints gather the state.
 
+With ``DD 1`` (and no mesh) one run is MPTRAC's spatial domain
+decomposition (``module_dd``, mptrac.c:4168) with every subdomain in
+this process on the state's device (``parallel.dd``'s local group):
+the met pair is cut into ``DD_SUBDOMAINS_ZONAL x
+DD_SUBDOMAINS_MERIDIONAL`` tiles with ``DD_HALOS_SIZE`` halos (again
+after every met swap), the parcels are scattered into a block of slots
+a subdomain, each step runs the physics of every subdomain on its tile
+and migrates the parcels that left it (``parallel.dd.make_dd_step``),
+and a sort sorts each subdomain's parcels in its own block, as each
+MPTRAC rank sorts its own; output gathers the live parcels.  The
+choice is made once, at construction; what the decomposed step cannot
+run (a mesh, the kernels of ``TPU_FAST``, a chemistry grid, mixing,
+the isosurface, checkpoints) raises.
+
 The compute mode is explicit: ``dtype=torch.float64`` (the default and
 the reference-parity mode) or ``torch.float32``, the mode in which
 ``TPU_FAST 1`` and ``2`` run the CUDA kernels.  In float32 mode the
 particle state and every met pair's axes are cast once (the particle
-time stays float64), which is the JAX package's ``astype_state``.
+time and index stay float64), which is the JAX package's
+``astype_state``.
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ from mptrac_tpu_torch.met.build import check_met_type, read_met
 from mptrac_tpu_torch.met.read_nc import get_met_filename
 from mptrac_tpu_torch.ops.fast_interp import MetPack, build_met_pack
 from mptrac_tpu_torch.ops.sort import module_sort
+from mptrac_tpu_torch.parallel import dd as ddm
 from mptrac_tpu_torch.parallel.mesh import (Mesh, Sharded, atm_block,
                                             cache_block, join_atm,
                                             join_cache, make_sharded_step,
@@ -57,7 +73,7 @@ from mptrac_tpu_torch.parallel.mesh import (Mesh, Sharded, atm_block,
 from mptrac_tpu_torch.physics import pipeline
 from mptrac_tpu_torch.physics.timesteps import init_time_range
 from mptrac_tpu_torch.types import (Atm, Cache, Clim, Met, astype_state,
-                                    resolve_device, stack_met)
+                                    grid_axes, resolve_device, stack_met)
 from mptrac_tpu_torch.utils.timers import Timers, span
 
 
@@ -268,6 +284,55 @@ def _live_times(atm: Atm):
     return np.concatenate(out) if out else np.zeros(0)
 
 
+def _dd_refusal(ctl: Ctl, mesh, checkpoint_file) -> Optional[str]:
+    """Why the domain-decomposed step cannot run this configuration
+    (None: it can)."""
+    if mesh is not None:
+        return "DD 1 with a mesh"
+    if ctl.tpu_fast:
+        return f"DD 1 with TPU_FAST {ctl.tpu_fast} (the exact path only)"
+    if (ctl.oh_chem_reaction != 0 or ctl.h2o2_chem_reaction != 0
+            or ctl.kpp_chem):
+        return "DD 1 with a chemistry grid"
+    if ctl.mixing_trop >= 0 and ctl.mixing_strat >= 0:
+        return "DD 1 with mixing"
+    if 1 <= ctl.isosurf <= 4:
+        return "DD 1 with ISOSURF"
+    if checkpoint_file:
+        return "DD 1 with checkpoints"
+    return None
+
+
+class DDRun:
+    """The domain decomposition of a run of ``n`` parcels: the grid of
+    subdomains (``parallel.dd.DDGrid``), a subdomain's slots (``cap``,
+    twice its share of the parcels) and exchange buffer to each other
+    subdomain (``exch_cap``, an eighth of its slots), the decomposed
+    step, and the tiles of the met pair in use (made once a pair,
+    ``tiles_of``)."""
+
+    def __init__(self, ctl: Ctl, clim: Clim, met01: Met, device, n: int):
+        self.grid = ddm.plan_decomposition(ctl, met01)
+        cap = self.cap = max(2 * n // self.grid.ndev, 1)
+        exch_cap = self.exch_cap = max(cap // 8, 1)
+        self.lat_axis = grid_axes(met01)[1]
+        self.step = ddm.make_dd_step(
+            ctl, clim, self.grid, ddm.local_group(self.grid.ndev, device),
+            cap, exch_cap, self.lat_axis)
+        self.tiles = self.tiles_src = None
+
+    def tiles_of(self, met01: Met) -> Met:
+        if self.tiles_src is not met01:
+            self.release()
+            self.tiles = ddm.make_tiles(self.grid, met01)
+            self.tiles_src = met01
+        return self.tiles
+
+    def release(self):
+        """Drop the tiles (before a new met pair is read)."""
+        self.tiles = self.tiles_src = None
+
+
 class Simulation:
     """One model run: ctl + clim + atm + cache + a met source.
 
@@ -285,6 +350,16 @@ class Simulation:
     ``atm`` and ``cache`` stay sharded (``parallel.mesh.unshard`` gives
     them whole); the met source and the climatology live on the mesh's
     first device.
+
+    With ``DD 1`` (see the module docstring) the met pair of the start
+    time is read at construction, and ``atm`` and ``cache`` are the
+    decomposed state: ``ndev x cap`` slots, each subdomain's live
+    parcels a prefix of its block, ``atm.np`` the counts a subdomain
+    (``parallel.dd.gather_parcels(sim.dd.grid, sim.atm, sim.dd.cap)``
+    gives them whole, as ``run()`` returns them).  ``dd`` is the
+    ``DDRun`` (None without DD), ``dd_counts`` the parcels that
+    overflowed an exchange buffer and that left the global domain,
+    summed over the steps.
     """
 
     #: re-sort when the served fraction since the last sort dips below
@@ -298,6 +373,10 @@ class Simulation:
                  checkpoint_dt: float = 0.0, *, met=None,
                  cache: Optional[Cache] = None, dtype=None,
                  mesh: Optional[Mesh] = None):
+        if ctl.dd:
+            why = _dd_refusal(ctl, mesh, checkpoint_file)
+            if why is not None:
+                raise NotImplementedError(why)
         self.mesh = mesh
         iso_npmax = None if 1 <= ctl.isosurf <= 4 else 1
         if mesh is None:
@@ -342,12 +421,32 @@ class Simulation:
         self._sharded = (None if mesh is None
                          else make_sharded_step(self.ctl, self.clim, mesh))
         self._met_rep = self._met_rep_src = None
+        self.dd: Optional[DDRun] = None
+        self.dd_counts: Optional[Dict[str, int]] = None
+        if self.ctl.dd:
+            self._start_dd(device)
+
+    def _start_dd(self, device):
+        """The decomposed state from the whole one: the first step's
+        initialisation on the start time's met pair, then the parcels
+        scattered to their subdomains' blocks."""
+        met01 = self.met.get(self.ctl.t_start)
+        self.atm, self.cache = pipeline.init_modules(
+            self.ctl, self.clim, met01, self.atm, self.cache)
+        self._first = False
+        self.dd = DDRun(self.ctl, self.clim, met01, device, int(self.atm.np))
+        self.atm, self.cache = ddm.scatter_parcels(
+            self.dd.grid, self.atm, self.dd.cap, self.dd.lat_axis,
+            cache=self.cache)
+        self.dd_counts = {"overflow": 0, "lost": 0}
 
     def resume(self, path: Optional[str] = None):
         """Restore the state of a checkpoint (of either package) onto
         this simulation's device and compute mode, and continue after
         its time: ``run()`` then steps from the next step time on."""
         from mptrac_tpu_torch.checkpoint import load_checkpoint
+        if self.dd is not None:
+            raise NotImplementedError("DD 1 with checkpoints")
         atm, cache, t, _ = load_checkpoint(
             path or self.checkpoint_file,
             device="cpu" if self.mesh is not None else self.atm.time.device)
@@ -407,9 +506,12 @@ class Simulation:
                 join_cache([c for _, c in out], self.mesh))
 
     def _sort_due(self) -> bool:
-        # served_min is a host float: no device sync
-        return (self.cache.served_min is not None
-                and self.cache.served_min < self.SORT_SERVED_THRESH)
+        # served_min is a host float (a list of them with DD): no device
+        # sync
+        served = self.cache.served_min
+        if isinstance(served, list):
+            served = min(served)
+        return served is not None and served < self.SORT_SERVED_THRESH
 
     def sort(self, met01: Optional[Met] = None):
         """Sort the particle state by met grid cell (on the pair of the
@@ -417,12 +519,36 @@ class Simulation:
         if met01 is None:
             met01 = self.met.get(self.ctl.t_start)
         with self.timers.timer("MODULE_SORT", "PHYSICS", "sort"):
-            if self.mesh is None:
+            if self.dd is not None:
+                self._sort_blocks(met01)
+            elif self.mesh is None:
                 self.atm, self.cache = module_sort(met01, self.atm,
                                                    self.cache)
             else:
                 self.atm, self.cache = self._each_shard(_sort_shard, met01)
         self.nsorts += 1
+
+    def _sort_blocks(self, met01: Met):
+        """Each subdomain's live parcels sorted in its own block by the
+        cells of its tile (``module_sort`` of this module, looked up at
+        the call), each in a span ``sort``."""
+        tiles = self.dd.tiles_of(met01)
+        atm, cache = self.atm, self.cache
+        for i, n_i in enumerate(int(k) for k in atm.np):
+            if not n_i:
+                continue
+            views = ddm.block(atm, cache, self.dd.cap, i, n_i)
+            with span("sort"):
+                a_i, c_i = module_sort(ddm.tile(tiles, i), views[0],
+                                       views[1].replace(served_min=None))
+            ddm.write_block(views, a_i, c_i)
+        self.cache = cache.replace(served_min=[1.0] * len(atm.np))
+
+    def _dd_step(self, met01: Met, t: float):
+        self.atm, self.cache, overflow, lost = self.dd.step(
+            self.dd.tiles_of(met01), self.atm, self.cache, t, self._flags(t))
+        self.dd_counts["overflow"] += int(overflow.sum())
+        self.dd_counts["lost"] += int(lost.sum())
 
     def _flags(self, t: float) -> pipeline.StepFlags:
         ctl = self.ctl
@@ -457,11 +583,15 @@ class Simulation:
         ``met.read`` per file and ``met.shift``), ``sort``,
         ``pack.build``, ``step``, ``output`` and ``checkpoint``; with a
         mesh also ``met.replicate`` and, on each shard's thread, a
-        ``sort`` under the sort and a ``shard`` under the step."""
+        ``sort`` under the sort and a ``shard`` under the step; with DD
+        a ``sort`` a subdomain under the sort, ``dd.tiles`` and the
+        decomposed step's ``dd.step`` under the step."""
         if self.met.swap_due(t):
             # release the old pair's tables before the new pair is read
             self._pack = self._pack_src = None
             self._met_rep = self._met_rep_src = None
+            if self.dd is not None:
+                self.dd.release()
         with self.timers.timer("GET_MET", "INPUT", "met.get"):
             met01 = self.met.get(t)
         if self._first:
@@ -479,7 +609,9 @@ class Simulation:
             self.sort(met01)
         pack = self._get_pack(met01)
         with self.timers.timer("RUN_TIMESTEP", "PHYSICS", "step"):
-            if self.mesh is None:
+            if self.dd is not None:
+                self._dd_step(met01, t)
+            elif self.mesh is None:
                 self.atm, self.cache = pipeline.run_timestep(
                     self.ctl, self.clim, met01, self.atm, self.cache, t,
                     self._flags(t), pack)
@@ -512,7 +644,9 @@ class Simulation:
         """Run the time loop over ``ts`` (default: every step time of
         the run after the resumed checkpoint's, if any, and then the timer
         table is printed at LOGLEV >= 1).  ``scan`` is accepted for the
-        JAX package's signature; every step is dispatched on its own."""
+        JAX package's signature; every step is dispatched on its own.
+        Returns the particle state (with DD its live parcels gathered
+        whole)."""
         if ts is None:
             ctl, t_res = self.ctl, self._resume_t
             steps = [t for t in self.times() if t_res is None
@@ -529,14 +663,21 @@ class Simulation:
             from mptrac_tpu_torch.utils.log import get_level
             if get_level() >= 1:
                 self.timers.report()
-        return self.atm
+        return self.parcels()
+
+    def parcels(self) -> Atm:
+        """The particle state; with DD its live parcels gathered into one
+        Atm, subdomain by subdomain."""
+        if self.dd is None:
+            return self.atm
+        return ddm.gather_parcels(self.dd.grid, self.atm, self.dd.cap)
 
     def write_output(self, t: float):
         """Output dispatcher (reference mptrac_write_output, c:7919)."""
         from mptrac_tpu_torch.io.output import OutputManager
         if self._output is None:
             self._output = OutputManager(self.dirname, self.ctl)
-        atm = self.atm
+        atm = self.parcels()
         if self.mesh is not None:
             atm = unshard(atm, self.mesh.devices[0])
         self._output.write(self.met, atm, t)
@@ -555,7 +696,8 @@ def run_trac(dirname: str, ctl_file: str, atm_file: str, args=(),
     """Equivalent of the reference trac program for one dirlist task
     (trac.c:95-185): read the control and particle files of ``dirname``,
     run, write the outputs there.  With ``mesh`` the run is sharded over
-    its devices (the parcels are read onto the first)."""
+    its devices (the parcels are read onto the first); with ``DD 1`` it
+    is domain-decomposed (``Simulation``)."""
     import time
     dev = resolve_device(device if mesh is None else mesh.devices[0])
     ctl = read_ctl(os.path.join(dirname, ctl_file), args)

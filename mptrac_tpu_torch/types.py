@@ -307,21 +307,33 @@ def _map_tensors(obj, fn):
     return obj
 
 
+#: quantities that stay float64 in every compute mode, as the parcel
+#: time does: a parcel index is exact in float32 only up to 2^24, and
+#: MPTRAC keeps every quantity in double
+F64_QUANTITIES = ("idx",)
+
+
+def quantity_dtype(name: str, dtype):
+    """The dtype of quantity ``name`` in compute mode ``dtype``."""
+    return torch.float64 if name in F64_QUANTITIES else dtype
+
+
 def astype_state(atm: Atm = None, cache: Cache = None, met: Met = None,
                  clim: Clim = None, dtype=torch.float32):
     """Cast model state to a compute precision.
 
     In fp32 mode positions, quantities, per-parcel timesteps and met
     grid axes go to float32 while parcel **time stays float64** (jsec
-    magnitudes ~1e9 need it), and so does the balloon track of
-    ``ISOSURF 4`` (``iso_ts``, ``iso_ps``), which the JAX package casts.
-    Returns the same tuple shape as the non-None inputs."""
+    magnitudes ~1e9 need it), and so do the quantities of
+    ``F64_QUANTITIES`` (``idx``) and the balloon track of ``ISOSURF 4``
+    (``iso_ts``, ``iso_ps``), which the JAX package casts.  Returns the
+    same tuple shape as the non-None inputs."""
     out = []
     if atm is not None:
         out.append(atm.replace(
             lon=atm.lon.to(dtype), lat=atm.lat.to(dtype),
             p=atm.p.to(dtype),
-            q={k: v.to(dtype) for k, v in atm.q.items()}))
+            q={k: v.to(quantity_dtype(k, dtype)) for k, v in atm.q.items()}))
     if cache is not None:
         out.append(cache.replace(
             dt=cache.dt.to(dtype), iso_var=cache.iso_var.to(dtype)))

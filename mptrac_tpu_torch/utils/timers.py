@@ -21,7 +21,9 @@ of its ``jax.named_scope`` annotations, grown into the port's tracer:
   records only where no span of that name is open on the thread.
 * **Counters.** ``count(name, n)``; ``counters`` is the dict behind
   ``ops._cuda.launch_counts``: the launches of each kernel, and the
-  counters of ``COUNTERS`` (``shards``).  While tracing, every kernel
+  counters of ``COUNTERS`` (``shards``, ``dd_selected``).  While
+  tracing, each ``count`` of a counter of ``COUNTERS`` is also kept
+  with the step index it falls in (``tallies()``), and every kernel
   launch of ``ops/_cuda`` is stamped with its device function's name and the
   host's time (``stamp``, ``launch_stamps()``): matched with the
   launches in a ``torch.profiler`` trace, the stamps put the spans on
@@ -66,9 +68,14 @@ _step = -1
 _records: list = []
 #: (device function, host ns) of every launch stamped while tracing
 _stamps: list = []
+#: (counter, n, step index) of every ``count`` of ``COUNTERS`` while
+#: tracing
+_tallies: list = []
 #: the counters that count no kernel launch: ``shards``, the shard steps
-#: of the sharded step (``parallel.mesh.ShardedStep``, one a device a step)
-COUNTERS = ("shards",)
+#: of the sharded step (``parallel.mesh.ShardedStep``, one a device a
+#: step); ``dd_selected``, the parcels that a domain-decomposed step's
+#: migration gathered with the permute kernel (``parallel.dd``)
+COUNTERS = ("shards", "dd_selected")
 #: counters by name (``count``); ``ops._cuda.launch_counts`` is this dict:
 #: a launch count a device function, and ``COUNTERS``
 counters: Dict[str, int] = dict.fromkeys(COUNTERS, 0)
@@ -240,6 +247,16 @@ def stage(name: str, timings: Optional[Dict[str, float]] = None,
 def count(name: str, n: int = 1) -> None:
     with _count_lock:        # the shards' worker threads count too
         counters[name] = counters.get(name, 0) + n
+        if name in COUNTERS and (_profiler._is_profiler_enabled
+                                 if _force is None else _force):
+            _tallies.append((name, n, _step))
+
+
+def tallies() -> List[dict]:
+    """Every ``count`` of a counter of ``COUNTERS`` made while tracing
+    since the last ``reset``, oldest first: ``name``, ``n`` and ``step``
+    (the step index it fell in)."""
+    return [dict(name=k, n=n, step=s) for k, n, s in _tallies]
 
 
 def stamp(kernel: str) -> None:
@@ -256,10 +273,11 @@ def launch_stamps() -> List[tuple]:
 
 
 def reset() -> None:
-    """Drop every record and stamp (the counters stay)."""
+    """Drop every record, stamp and tally (the counters stay)."""
     global _step
     del _records[:]
     del _stamps[:]
+    del _tallies[:]
     _step = -1
 
 

@@ -821,8 +821,9 @@ def test_dd_step_card_against_cpu(gpu, dtype, monkeypatch):
     counts exactly, every column within a few ulps; K3 carried each
     selection on the card (three a subdomain a step, on the gather path
     without a count pass; in float64 the time, p, lon, lat and idx
-    columns take one launch each, the first beside uvwp), one launch a
-    call that selects anything."""
+    columns take one launch each, the first beside uvwp; in float32 the
+    time beside the float32 columns and the float64 idx alone), one
+    launch a call that selects anything."""
     from mptrac_tpu_torch.ops import _cuda
     from mptrac_tpu_torch.parallel import dd as ddm
     dt = getattr(torch, dtype)
@@ -850,7 +851,7 @@ def test_dd_step_card_against_cpu(gpu, dtype, monkeypatch):
         out[dev] = (a, c, counts, dict(_cuda.launch_counts))
     (ag, cg, ng, launches), (ac, cc, nc, _) = out["cuda"], out["cpu"]
     assert ng == nc
-    per = 5 if dtype == "float64" else 1
+    per = 5 if dtype == "float64" else 2
     assert len(sizes) == 6 * 3 * 8 * per
     assert launches["permute_gather"] == sum(1 for n in sizes if n)
     assert launches["permute_gather"] >= 6 * 8 * per      # the stayers
@@ -864,6 +865,57 @@ def test_dd_step_card_against_cpu(gpu, dtype, monkeypatch):
                                    atol=tol, err_msg=name)
     assert torch.equal(ag.q["idx"].cpu(), ac.q["idx"])
     assert torch.equal(ag.time.cpu(), ac.time)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_dd_simulation_card_against_cpu(gpu, dtype, monkeypatch):
+    """``Simulation`` with ``DD 1`` (tiles, scatter, the decomposed step,
+    a sort a subdomain block) on the card and on the CPU, 6 steps: the
+    counts a subdomain exactly, every column within a few ulps, the index
+    exactly; on the card each K3 selection of the migration equals its
+    plain version bit for bit."""
+    from mptrac_tpu_torch.parallel import dd as ddm
+    from mptrac_tpu_torch.sim import FixedMet, Simulation
+    from mptrac_tpu_torch.types import Cache
+    dt = getattr(torch, dtype)
+    real, checked = ddm.permute_cols, []
+
+    def held(cols32, idx, col64=None, *, plan=None):
+        out = real(cols32, idx, col64, plan=plan)
+        if idx.is_cuda:
+            exp32, exp64 = slab_interp.permute_cols_plain(cols32, idx, col64)
+            checked.append(idx.shape[0])
+            assert torch.equal(out[0], exp32)
+            assert (col64 is None and out[1] is None) or torch.equal(
+                out[1], exp64)
+        return out
+
+    monkeypatch.setattr(ddm, "permute_cols", held)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ctl, clim, met01, atm = _dd_case(dev, dt, n=3000)
+        ctl = ctl.replace(dd=1, sort_dt=2400.0, dt_mod=1200.0)
+        sim = Simulation(ctl, atm, clim, met=FixedMet(met01),
+                         cache=Cache.zeros(3000, dt, iso_npmax=1,
+                                           device=dev),
+                         dtype=dt)
+        counts = []
+        for i in range(6):
+            sim.advance(i * 1200.0, write_output=False)
+            counts.append(sim.atm.np.tolist())
+        runs[dev] = (sim.parcels(), counts, dict(sim.dd_counts), sim.nsorts)
+    (ag, ng, cg, sg), (ac, nc, cc, sc) = runs["cuda"], runs["cpu"]
+    assert ng == nc and cg == cc == {"overflow": 0, "lost": 0}
+    assert sg == sc == 3
+    assert len(checked) == 6 * 3 * 8 * (5 if dtype == "float64" else 2)
+    assert ag.q["idx"].dtype == torch.float64
+    assert torch.equal(ag.q["idx"].cpu(), ac.q["idx"])
+    assert torch.equal(ag.time.cpu(), ac.time)
+    tol = 1e-9 if dtype == "float64" else 1e-3
+    for name in ("lon", "lat", "p"):
+        np.testing.assert_allclose(getattr(ag, name).cpu().numpy(),
+                                   getattr(ac, name).numpy(), rtol=0,
+                                   atol=tol, err_msg=name)
 
 
 def test_sharded_step_on_the_card_equals_unsharded(gpu):

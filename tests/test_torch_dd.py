@@ -446,10 +446,11 @@ def test_dd_step_without_exchange_matches_jax(dd_case):
 
 def test_float32_state_keeps_dtypes_and_jax_values(dd_case):
     """F9: in the float32 mode the port's DD state stays float32 (time
-    float64) through scatter and step, where the JAX step's state turns
-    float64; the values still equal JAX's at float32's resolution (the
-    JAX side computes the owner and the lost test on float64 copies of
-    the same float32 values)."""
+    and the parcel index float64, as ``astype_state`` keeps them) through
+    scatter and step, where the JAX step's state turns float64; the
+    values still equal JAX's at float32's resolution (the JAX side
+    computes the owner and the lost test on float64 copies of the same
+    float32 values)."""
     from mptrac_tpu.types import astype_state as jast
     from mptrac_tpu_torch.types import astype_state as tast
     c = dict(dd_case)
@@ -458,8 +459,8 @@ def test_float32_state_keeps_dtypes_and_jax_values(dd_case):
     ja, jc, jsteps = run_jax_dd(c, 2)
     ta, tc, tsteps = run_port_dd(c, 2)
     assert np.asarray(ja.lon).dtype == np.float64                # F9
-    assert ta.lon.dtype == ta.p.dtype == ta.q["idx"].dtype == torch.float32
-    assert ta.time.dtype == torch.float64
+    assert ta.lon.dtype == ta.p.dtype == torch.float32
+    assert ta.time.dtype == ta.q["idx"].dtype == torch.float64
     assert tc.uvwp.dtype == torch.float32
     for (jn, _, _), (tn, _, _) in zip(jsteps, tsteps):
         np.testing.assert_array_equal(tn, jn)

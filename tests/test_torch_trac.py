@@ -378,7 +378,7 @@ def _particles_with(dirname, columns):
     ("RADIO_DECAY", "1"),
     ("KPP_CHEM", "1"),
     ("RNG_TYPE", "2"),
-    ("DD", "1"),
+    ("DD", "1", "DIFFUSION", "0"),
 ], ids=["chem_grid", "mixing", "dry_depo", "bound_cond", "pbl", "sedi",
         "isosurf", "radio_decay", "kpp", "rng_type_2", "dd"])
 def test_ported_module_runs_and_agrees_with_jax(tmp_path, args,
@@ -387,11 +387,14 @@ def test_ported_module_runs_and_agrees_with_jax(tmp_path, args,
     chemistry, the mixing, the dry deposition, the boundary conditions,
     the PBL scheme, sedimentation (of 1 um particles of 2500 kg/m^3), the
     isosurface, radioactive decay, KPP chemistry, the threefry
-    generator and ``DD 1`` (whose only effect in ``run_trac``, in both
-    packages, is that module_timesteps skips the local-domain freeze):
-    ``run_trac`` runs to the end in both packages (float64, the
-    case of ``make_case``, three steps) and the final states agree at the
-    tolerances of test_run_trac_states_agree_with_jax.  (These were the
+    generator and ``DD 1`` (the port's ``run_trac`` runs the decomposed
+    step, over the default single subdomain, whose parcels keep their
+    order; the JAX package's only skips the timesteps' local-domain
+    freeze; without diffusion, as a subdomain draws from a stream of its
+    own over its slots): ``run_trac`` runs to the end in both packages
+    (float64, the case of ``make_case``, three steps) and the final
+    states agree at the tolerances of
+    test_run_trac_states_agree_with_jax.  (These were the
     cases of test_unported_gate_raises_by_name while the modules raised;
     tests/test_torch_chem.py, test_torch_pbl.py, test_torch_kpp.py and
     test_torch_rng.py hold each module's effect.)"""
@@ -403,7 +406,8 @@ def test_ported_module_runs_and_agrees_with_jax(tmp_path, args,
             _particles_with(d, {9: 1.0, 10: 2500.0})
     ja = jrun_trac(jdir, "trac.ctl", "atm_in.tab", list(run)).atm
     tsim = trun_trac(tdir, "trac.ctl", "atm_in.tab", run, device="cpu")
-    ta = tsim.atm
+    ta = tsim.parcels()
+    assert (tsim.dd is not None) == ("DD" in args)
     assert tsim.timers.as_dict()["RUN_TIMESTEP"]["count"] == 3
     np.testing.assert_array_equal(ta.time.numpy(), np.asarray(ja.time))
     for name in ("lon", "lat"):
